@@ -1,0 +1,162 @@
+"""Dataset generator and host oracle: ctypes bindings over the C++ host
+engine, with numpy fallbacks that match the same distributions (not
+bit-identical; the checked-in oracle values under `data/` hold only for the
+native generator).
+
+The library is built from the JAX package's source,
+`icde2019_gpu_join_tpu/datagen/native/host_engine.cpp`, read in place into
+this package's build directory (`ops/_build.py`), so the datasets are
+bit-identical to the JAX package's. It uses the same glibc rand()/nrand48()
+primitives as the reference (src/generator_ETHZ.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+
+from icde2019_gpu_join_tpu_torch.ops import _build
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.tj_seed.argtypes = [ctypes.c_uint]
+    lib.tj_seed.restype = None
+    lib.tj_random_gen.argtypes = [i32p, ctypes.c_uint64, ctypes.c_int64]
+    lib.tj_random_gen.restype = None
+    lib.tj_random_unique_gen.argtypes = [i32p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_uint]
+    lib.tj_random_unique_gen.restype = None
+    lib.tj_fk_from_pk.argtypes = [i32p, ctypes.c_uint64, i32p, ctypes.c_uint64]
+    lib.tj_fk_from_pk.restype = None
+    lib.tj_gen_zipf.argtypes = [i32p, ctypes.c_uint64, ctypes.c_uint, ctypes.c_double]
+    lib.tj_gen_zipf.restype = None
+    lib.tj_oracle_join_aggregate.argtypes = [
+        i32p, i32p, ctypes.c_uint64, i32p, i32p, ctypes.c_uint64,
+    ]
+    lib.tj_oracle_join_aggregate.restype = ctypes.c_int32
+    return lib
+
+
+def native_lib() -> Optional[ctypes.CDLL]:
+    """Load (building if needed) the native host library; None if it cannot
+    be built here (callers then fall back to numpy)."""
+    global _lib
+    if _lib is None:
+        try:
+            lib = _build.host_lib()
+        except RuntimeError:
+            return None
+        _lib = _bind(lib)
+    return _lib
+
+
+def _i32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+# --------------------------- generators -----------------------------------
+
+def random_gen(n: int, maxid: int, seed: int = 12345) -> np.ndarray:
+    """Uniform non-unique keys in [0, maxid) (reference random_gen,
+    src/generator_ETHZ.cu:115-122)."""
+    lib = native_lib()
+    out = np.empty(n, dtype=np.int32)
+    if lib is not None:
+        lib.tj_seed(seed)
+        lib.tj_random_gen(_i32p(out), n, maxid)
+        return out
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, maxid, size=n, dtype=np.int32)
+
+
+def random_unique_gen(n: int, maxid: int, seed: int = 12345) -> np.ndarray:
+    """Unique keys (a shuffled cycle 0, 1..maxid, 1..maxid, ...) (reference
+    random_unique_gen, src/generator_ETHZ.cu:127-149)."""
+    lib = native_lib()
+    if lib is not None:
+        out = np.empty(n, dtype=np.int32)
+        lib.tj_random_unique_gen(_i32p(out), n, maxid, seed)
+        return out
+    if n <= maxid + 1:
+        base = np.arange(n, dtype=np.int32)
+    else:
+        base = np.empty(n, dtype=np.int32)
+        base[: maxid + 1] = np.arange(maxid + 1, dtype=np.int32)
+        rest = np.arange(n - (maxid + 1), dtype=np.int64) % maxid + 1
+        base[maxid + 1:] = rest.astype(np.int32)
+    rng = np.random.RandomState(seed)
+    return base[rng.permutation(n)]
+
+
+def fk_from_pk(n_fk: int, pk: np.ndarray, seed: int = 12345) -> np.ndarray:
+    """FK relation: tile the PK relation then shuffle (reference
+    create_relation_fk_from_pk, src/generator_ETHZ.cu:162-187)."""
+    lib = native_lib()
+    pk = np.ascontiguousarray(pk, dtype=np.int32)
+    if lib is not None:
+        out = np.empty(n_fk, dtype=np.int32)
+        lib.tj_seed(seed)
+        lib.tj_fk_from_pk(_i32p(out), n_fk, _i32p(pk), pk.shape[0])
+        return out
+    reps = -(-n_fk // pk.shape[0])
+    tiled = np.tile(pk, reps)[:n_fk]
+    rng = np.random.RandomState(seed)
+    return tiled[rng.permutation(n_fk)]
+
+
+def gen_zipf(n: int, alphabet_size: int, z: float, seed: int = 12345) -> np.ndarray:
+    """Zipf keys over a shuffled alphabet {1..alphabet_size} (reference
+    gen_zipf/gen_zipf_lut/gen_alphabet, src/generator_ETHZ.cu:236-348)."""
+    lib = native_lib()
+    if lib is not None:
+        out = np.empty(n, dtype=np.int32)
+        lib.tj_seed(seed)
+        lib.tj_gen_zipf(_i32p(out), n, alphabet_size, z)
+        return out
+    rng = np.random.RandomState(seed)
+    alpha = rng.permutation(alphabet_size).astype(np.int32) + 1
+    w = 1.0 / np.power(np.arange(1, alphabet_size + 1, dtype=np.float64), z)
+    cdf = np.cumsum(w / w.sum())
+    r = rng.random_sample(n)
+    pos = np.searchsorted(cdf, r, side="left")
+    return alpha[np.minimum(pos, alphabet_size - 1)]
+
+
+# --------------------------- host oracle -----------------------------------
+
+def oracle_join_aggregate(
+    r_keys: np.ndarray, r_pay: np.ndarray,
+    s_keys: np.ndarray, s_pay: np.ndarray,
+) -> Optional[int]:
+    """Native C++ oracle SUM(Pr*Ps) mod 2^32 (a partitioned hash join that
+    shares nothing with the device path). None when the native library is
+    unavailable."""
+    lib = native_lib()
+    if lib is None:
+        return None
+    rk = np.ascontiguousarray(r_keys, dtype=np.int32)
+    rp = np.ascontiguousarray(r_pay, dtype=np.int32)
+    sk = np.ascontiguousarray(s_keys, dtype=np.int32)
+    sp = np.ascontiguousarray(s_pay, dtype=np.int32)
+    if rk.shape != rp.shape or sk.shape != sp.shape:
+        raise ValueError("keys and payloads must have equal lengths")
+    return int(lib.tj_oracle_join_aggregate(
+        _i32p(rk), _i32p(rp), rk.shape[0], _i32p(sk), _i32p(sp),
+        sk.shape[0]))
+
+
+def host_oracle_aggregate(
+    r_keys: np.ndarray, r_pay: np.ndarray,
+    s_keys: np.ndarray, s_pay: np.ndarray,
+) -> int:
+    """The host oracle with its fallback policy in one place: the native C++
+    oracle when available, the (slow) numpy oracle otherwise."""
+    got = oracle_join_aggregate(r_keys, r_pay, s_keys, s_pay)
+    if got is None:
+        from icde2019_gpu_join_tpu_torch.utils import oracle
+        got = oracle.join_aggregate(r_keys, r_pay, s_keys, s_pay)
+    return got

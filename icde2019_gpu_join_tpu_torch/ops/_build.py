@@ -1,0 +1,114 @@
+"""Builds the port's native libraries at first use and loads them with ctypes.
+
+* `libtpujoin_torch_kernels.so`: every `csrc/*.cu`, compiled by `nvcc` for
+  `sm_90a` into a shared library with a plain C interface.
+* `libtpujoin_host.so`: the JAX package's host engine
+  (`icde2019_gpu_join_tpu/datagen/native/host_engine.cpp`, read in place and
+  never imported), compiled by `g++`. The same source gives the same
+  datasets and the same C++ oracle as the JAX package.
+
+Both land in `icde2019_gpu_join_tpu_torch/_build/`. A library is rebuilt
+when one of its sources is newer than it. A failed build raises with the
+compiler's stderr. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import platform
+import shutil
+import subprocess
+import time
+from typing import List, Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+HOST_SRC = os.path.join(os.path.dirname(_PKG_DIR), "icde2019_gpu_join_tpu",
+                        "datagen", "native", "host_engine.cpp")
+KERNEL_LIB = os.path.join(BUILD_DIR, "libtpujoin_torch_kernels.so")
+HOST_LIB = os.path.join(BUILD_DIR, "libtpujoin_host.so")
+
+_loaded = {}
+
+
+def _is_stale(out: str, sources: List[str]) -> bool:
+    try:
+        built = os.path.getmtime(out)
+    except OSError:
+        return True
+    return any(os.path.getmtime(s) > built for s in sources)
+
+
+def _compile(cmd: List[str], out: str, sources: List[str]) -> float:
+    """Compile into a temporary file, then rename it over `out`, so that
+    concurrent builders (test workers) never load a half-written library.
+    Returns the seconds spent."""
+    if shutil.which(cmd[0]) is None:
+        raise RuntimeError(f"{cmd[0]} not found; cannot build {out}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, "-o", tmp, *sources],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {os.path.basename(out)} failed:\n"
+                           f"{' '.join(proc.args)}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def kernel_sources() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def build_kernels() -> float:
+    """Build the CUDA kernel library if it is missing or stale; returns the
+    seconds spent (0.0 when it was up to date)."""
+    srcs = kernel_sources()
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    if not _is_stale(KERNEL_LIB, srcs + headers):
+        return 0.0
+    return _compile(
+        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-shared", "-Xcompiler", "-fPIC"],
+        KERNEL_LIB, srcs)
+
+
+def build_host() -> float:
+    """Build the host engine library if it is missing or stale; returns the
+    seconds spent (0.0 when it was up to date)."""
+    if not _is_stale(HOST_LIB, [HOST_SRC]):
+        return 0.0
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-fopenmp"]
+    if platform.machine() in ("x86_64", "AMD64"):
+        cmd.append("-mavx2")
+    return _compile(cmd, HOST_LIB, [HOST_SRC])
+
+
+def _load(path: str, build) -> ctypes.CDLL:
+    lib: Optional[ctypes.CDLL] = _loaded.get(path)
+    if lib is None:
+        build()
+        lib = _loaded[path] = ctypes.CDLL(path)
+    return lib
+
+
+def kernel_lib() -> ctypes.CDLL:
+    """The CUDA kernel library, built on first use."""
+    return _load(KERNEL_LIB, build_kernels)
+
+
+def host_lib() -> ctypes.CDLL:
+    """The host engine library, built on first use."""
+    return _load(HOST_LIB, build_host)

@@ -1,0 +1,155 @@
+"""The port's ClusteredJoin, config, datagen and datasets against the JAX
+package's, and the rule that the port never imports JAX."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icde2019_gpu_join_tpu import config as jconfig
+from icde2019_gpu_join_tpu import datagen as jdatagen
+from icde2019_gpu_join_tpu.models import ClusteredJoin as JaxJoin
+from icde2019_gpu_join_tpu.relation import Relation as JaxRelation
+from icde2019_gpu_join_tpu.utils import datasets as jdatasets
+from icde2019_gpu_join_tpu.utils import oracle
+from icde2019_gpu_join_tpu_torch import datagen as tdatagen
+from icde2019_gpu_join_tpu_torch.config import EngineConfig, RadixConfig
+from icde2019_gpu_join_tpu_torch.models import ClusteredJoin
+from icde2019_gpu_join_tpu_torch.relation import Relation
+from icde2019_gpu_join_tpu_torch.utils import datasets as tdatasets
+from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
+from tests.conftest import make_tables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _rels(rk, rp, sk, sp):
+    port = (Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp))
+    jax = (JaxRelation(jnp.asarray(rk), jnp.asarray(rp)),
+           JaxRelation(jnp.asarray(sk), jnp.asarray(sp)))
+    return port, jax
+
+
+@pytest.mark.parametrize("n_r,n_s,dup", [
+    (1 << 10, 1 << 12, False), (1 << 12, 1 << 12, True), (1 << 14, 1 << 16, False),
+])
+def test_aggregate_and_count_match_jax(rng, n_r, n_s, dup):
+    rk, rp, sk, sp = make_tables(rng, n_r=n_r, n_s=n_s, dup_build=dup)
+    (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
+    res = ClusteredJoin().aggregate(tr, ts)
+    assert res.aggregate == JaxJoin().aggregate(jr, js).aggregate
+    assert res.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
+    assert res.timer.seconds("join") > 0
+    cnt = ClusteredJoin().count(tr, ts).count
+    assert cnt == JaxJoin().count(jr, js).count == toracle.join_count(rk, sk)
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_window_blocks_from_config(rng, w):
+    rk, rp, sk, sp = make_tables(rng, dup_build=True)
+    (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
+    got = ClusteredJoin(EngineConfig(band_window_blocks=w)).aggregate(tr, ts)
+    want = JaxJoin(jconfig.EngineConfig(band_window_blocks=w)).aggregate(jr, js)
+    assert got.aggregate == want.aggregate
+
+
+def test_engine_config_from_jax_dict():
+    jcfg = jconfig.EngineConfig(
+        radix=jconfig.RadixConfig(total_bits=9, first_bit=2),
+        band_window_blocks=2, probe_tile_s=512)
+    for jc in (jconfig.EngineConfig(), jcfg):
+        port = EngineConfig.from_dict(dataclasses.asdict(jc))
+        assert isinstance(port.radix, RadixConfig)
+        assert dataclasses.asdict(port) == dataclasses.asdict(jc)
+        assert port.radix.pass_plan() == jc.radix.pass_plan()
+
+
+def test_default_bits_match_jax():
+    from icde2019_gpu_join_tpu_torch.config import default_bits_for
+    for n in (0, 1, 255, 4096, 1 << 20, 1 << 31):
+        assert default_bits_for(n) == jconfig.default_bits_for(n)
+
+
+def test_unported_modes_raise():
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        ClusteredJoin(EngineConfig(probe_mode="pallas"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        ClusteredJoin(EngineConfig(sort_impl="merge"))
+
+
+def test_relation_device_must_match_engine():
+    r = Relation(torch.zeros(4, dtype=torch.int32), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ClusteredJoin(device="cpu").aggregate(r, r)
+
+
+def test_relation_rejects_non_int32():
+    with pytest.raises(ValueError):
+        Relation(torch.zeros(4, dtype=torch.int64))
+
+
+def test_make_pk_fk_byte_identical(tmp_path, monkeypatch):
+    assert tdatagen.native_lib() is not None and jdatagen.native_lib() is not None
+    monkeypatch.setenv("TPU_JOIN_DATA_DIR", str(tmp_path / "jax"))
+    j_r, j_s = jdatasets.make_pk_fk(1000, 4000)
+    monkeypatch.setenv("TPU_JOIN_DATA_DIR", str(tmp_path / "port"))
+    t_r, t_s = tdatasets.make_pk_fk(1000, 4000)
+    assert t_r.tobytes() == j_r.tobytes() and t_s.tobytes() == j_s.tobytes()
+    for name in os.listdir(tmp_path / "jax"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes()
+    monkeypatch.setenv("TPU_JOIN_DATA_DIR", str(tmp_path / "zipf"))
+    assert np.array_equal(tdatasets.make_pk_fk(1000, 4000, skew=1.05)[1],
+                          jdatagen.gen_zipf(4000, 1000, 1.05, 12345))
+
+
+@pytest.mark.parametrize("gen,args", [
+    ("random_gen", (5000, 700, 3)),
+    ("random_unique_gen", (5000, 1200, 4)),
+    ("gen_zipf", (5000, 300, 0.8, 5)),
+])
+def test_generators_byte_identical(gen, args):
+    assert getattr(tdatagen, gen)(*args).tobytes() == \
+        getattr(jdatagen, gen)(*args).tobytes()
+
+
+def test_fk_from_pk_byte_identical():
+    pk = jdatagen.random_unique_gen(700, 700, 9)
+    assert tdatagen.fk_from_pk(3000, pk, 9).tobytes() == \
+        jdatagen.fk_from_pk(3000, pk, 9).tobytes()
+
+
+def test_cpp_oracle_matches_jax(rng):
+    rk, rp, sk, sp = make_tables(rng, n_r=3000, n_s=12000, dup_build=True)
+    got = tdatagen.oracle_join_aggregate(rk, rp, sk, sp)
+    assert got == jdatagen.oracle_join_aggregate(rk, rp, sk, sp)
+    assert got == tdatagen.host_oracle_aggregate(rk, rp, sk, sp)
+    assert got == toracle.join_aggregate(rk, rp, sk, sp) == \
+        oracle.join_aggregate(rk, rp, sk, sp)
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import icde2019_gpu_join_tpu_torch\n"
+        "import icde2019_gpu_join_tpu_torch.models.joins\n"
+        "import icde2019_gpu_join_tpu_torch.ops.band_join\n"
+        "import icde2019_gpu_join_tpu_torch.ops.band_compare\n"
+        "import icde2019_gpu_join_tpu_torch.ops._build\n"
+        "import icde2019_gpu_join_tpu_torch.datagen\n"
+        "import icde2019_gpu_join_tpu_torch.utils.datasets\n"
+        "import icde2019_gpu_join_tpu_torch.utils.oracle\n"
+        "import icde2019_gpu_join_tpu_torch.utils.timing\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'icde2019_gpu_join_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
