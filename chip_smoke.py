@@ -1,25 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the repository root: `python3 chip_smoke.py`. It drives the port's
-main path, `ClusteredJoin(device="cuda").aggregate`, in five phases, each
-printing one line:
+Run from the repository root: `python3 chip_smoke.py`. It builds the port's
+kernels and drives its paths on the card, each phase printing one line with
+its seconds:
 
-  1. report: torch and CUDA versions, the card's name and power limit;
-  2. build: the CUDA kernel library (nvcc, sm_90a) and the C++ host library;
-  3. kernel vs plain: `banded_compare_sum` against `banded_compare_sum_ref`
-     on the card, exact int32 equality, with both times;
-  4. end to end at 2^24 x 2^24 uniform PK-FK (against the checked-in oracle
-     value) and at 2^22 x 2^22 Zipf z=1.05 (against the C++ oracle);
-  5. end to end at 2^27 x 2^27 uniform PK-FK with payloads of 1, the
-     `bench.py` workload: best of 3 after a warm-up, which must equal the
-     checked-in oracle value and must have launched the kernel.
+  report     torch and CUDA versions, the card's name and power limit;
+  build      the CUDA kernel library (nvcc, sm_90a) and the C++ host library,
+             side by side;
+  kernel     each of the four kernels against its plain version on the card,
+             exact int32 equality at small shapes (W > 1, full-range
+             payloads, empty windows) and at the shape its path gives it,
+             with both times at that shape;
+  mid        `ClusteredJoin.aggregate` at 2^24 x 2^24 uniform PK-FK (against
+             the checked-in oracle value) and 2^22 x 2^22 Zipf z=1.05
+             (against the C++ oracle);
+  headline   the aggregate at 2^27 x 2^27 uniform PK-FK with payloads of 1,
+             the `bench.py` workload: best of 3 after a warm-up;
+  materialize  `ClusteredJoin.materialize` (a) at 2^24 x 2^24 PK-FK into a
+             2^24 buffer, which must take the block-windowed fast path and
+             equal the numpy oracle as a multiset, and (b) the config-2 leg,
+             2^27 x 2^27 into a 2^24 ring: the total must equal the
+             checked-in oracle value and the ring the one built in numpy from
+             the sorted S keys (payloads are functions of the key, so the
+             ring does not depend on tie order); best of 3;
+  late       `ClusteredJoin.late_aggregate` at 2^24 per side with 4 R and 2 S
+             columns, against the numpy oracle;
+  pipeline   BASELINE.json config 3, 2^24 R x 2^29 S, 64 groups, filter
+             [100, 600): fused and streamed in 4 segments, equal to each
+             other and to a direct-address numpy oracle, best of 3 and peak
+             device memory; and the general numpy oracle at 2^20
+             duplicate-key R x 2^23 S.
 
-Then one JSON line on the kernels, and last the result line
-`{"ok": true, "device": {...}}`. Any failure raises, so the exit code is not
-0 and no result line is printed; that includes a machine without CUDA.
+The headline, materialize, late and pipeline phases each zero the
+kernels' launch counts just before they drive their path, read them just
+after, and fail if a kernel of the path did not launch. Then one JSON line
+on the kernels, and last the result line `{"ok": true, "device": {...}}`.
+Any failure raises, so the exit code is not 0 and no result line is
+printed; that includes a machine without CUDA.
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -30,16 +51,25 @@ import numpy as np
 import torch
 
 from icde2019_gpu_join_tpu_torch import datagen
-from icde2019_gpu_join_tpu_torch.models import ClusteredJoin
+from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
 from icde2019_gpu_join_tpu_torch.ops import _build, band_compare, band_join
+from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.relation import Relation
-from icde2019_gpu_join_tpu_torch.utils import datasets
+from icde2019_gpu_join_tpu_torch.utils import datasets, oracle
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"
 SEED = 12345
-KERNEL_SHAPES = [(8, 1), (333, 3), (2048, 1), (2048, 4)]
-HEADLINE_SCALE = 27
+SMALL_SHAPES = [(8, 1), (333, 3), (2048, 1), (2048, 4)]   # (CH, W)
+MID_SCALE = 24        # log2 rows per side: mid aggregate and late aggregate
+HEADLINE_SCALE = 27   # the aggregate headline and the config-2 ring leg
+RING = 1 << 24        # the FOLD ring; also the rows per side of the fast leg
 REPS = 3
+KEY_MIX = 0x5bd1e995   # S payload = key ^ KEY_MIX, R payload = 7 * key + 1
+C3 = dict(n_r=1 << 24, n_s=1 << 29, groups=64, lo=100, hi=600, segments=4)
+C3_GENERAL = (1 << 20, 1 << 23)   # (R, S) rows for the general numpy oracle
+PALLAS = "icde2019_gpu_join_tpu/ops/band_compare_pallas.py"
+SOURCE = "icde2019_gpu_join_tpu_torch/csrc/band_compare.cu"
 
 
 def _oracle_value(scale: int, skew: float) -> int:
@@ -64,24 +94,120 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _chunk_inputs(ch: int, w: int, rng: np.random.RandomState):
-    """Dense-match chunk: keys from a narrow range, full-range int32
-    payloads (sums wrap), and one row whose rp is all zero."""
-    wb = w * band_compare.LANES
-    sk = rng.randint(0, 16, (ch, band_compare.LANES)).astype(np.int32)
-    rk = rng.randint(0, 16, (ch, wb)).astype(np.int32)
-    sp = rng.randint(-2**31, 2**31, sk.shape, dtype=np.int64).astype(np.int32)
-    rp = rng.randint(-2**31, 2**31, rk.shape, dtype=np.int64).astype(np.int32)
+def _best_s(fn, reps: int = REPS):
+    """(best wall seconds of `reps` synchronised calls, the last result)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def _launched(fn):
+    """Zero the launch counts, run fn once (synchronised), and return
+    (fn's result, the launch counts of that run)."""
+    band_compare.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(band_compare.LAUNCHES)
+
+
+def _require(counts: dict, path: str, *names):
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{path}: kernel {name} did not launch ({counts})")
+
+
+# ---- kernel inputs, made on the card from a seeded generator -------------
+
+def _ints(gen, lo: int, hi: int, shape) -> torch.Tensor:
+    return torch.randint(lo, hi, shape, generator=gen, device=DEVICE,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def _full(gen, shape) -> torch.Tensor:
+    """Full-range int32 payloads (sums wrap)."""
+    return wrap_i32(torch.randint(0, 1 << 32, shape, generator=gen,
+                                  device=DEVICE, dtype=torch.int64))
+
+
+def _compare_inputs(gen, ch: int, wb: int):
+    """Keys from a narrow range (dense matches); one row whose window holds
+    only the R-pad sentinel (an empty window)."""
+    sk = _ints(gen, 0, 16, (ch, band_compare.LANES))
+    rk = _ints(gen, 0, 16, (ch, wb))
+    rk[ch // 3] = band_join._R_PAD_SV
+    return sk, rk
+
+
+def _sum_args(gen, ch, wb):
+    sk, rk = _compare_inputs(gen, ch, wb)
+    rp = _full(gen, (ch, wb))
     rp[ch // 2] = 0
-    return [torch.from_numpy(a).cuda() for a in (sk, sp, rk, rp)]
+    return sk, _full(gen, sk.shape), rk, rp
 
 
-def _max_rounds(r: Relation, s: Relation, w: int) -> int:
-    r_sv, _ = band_join.sort_by_key(r.keys, r.payload)
-    s_sv, _ = band_join.sort_by_key(s.keys, s.payload)
-    lo, hi = band_join.block_windows(r_sv, s_sv)
-    return int(((hi - lo + (w - 1)) // w).max())
+def _per_s_args(gen, ch, wb):
+    sk, rk = _compare_inputs(gen, ch, wb)
+    return sk, rk, _full(gen, (ch, wb))
 
+
+def _first_args(gen, ch, wb):
+    sk, rk = _compare_inputs(gen, ch, wb)
+    gidx = torch.randperm(ch * wb, generator=gen, device=DEVICE).to(
+        torch.int32).view(ch, wb)
+    return sk, rk, gidx
+
+
+def _interval_args(gen, ch, wb):
+    """Disjoint [lo, hi) per row, some empty and one row all empty; slots on
+    both sides of every interval."""
+    widths = _ints(gen, 0, 5, (ch, wb))
+    widths[ch // 3] = 0
+    lo = (torch.cumsum(widths, 1) - widths).to(torch.int32)
+    hi = lo + widths
+    pos = _ints(gen, -2, int(hi.max()) + 3, (ch, band_compare.LANES))
+    return (pos, lo, hi, _full(gen, (ch, wb)), _full(gen, (ch, wb)),
+            torch.ones_like(lo))
+
+
+BC = band_compare
+# name: (wrapper, plain version, inputs, line of the TPU kernel)
+KERNELS = {
+    "banded_compare_sum": (BC.banded_compare_sum, BC.banded_compare_sum_ref,
+                           _sum_args, 44),
+    "banded_compare_per_s": (BC.banded_compare_per_s,
+                             BC.banded_compare_per_s_ref, _per_s_args, 93),
+    "banded_compare_first": (BC.banded_compare_first,
+                             BC.banded_compare_first_ref, _first_args, 138),
+    "banded_interval_select": (BC.banded_interval_select,
+                               BC.banded_interval_select_ref, _interval_args,
+                               185),
+}
+
+
+def _main_shapes() -> dict:
+    """The (CH, W) each kernel gets on its path, the timed one first: a
+    probe chunk at W = 1 (aggregate, pipeline, descriptors), and
+    _extract_blocked's slot blocks at a RING buffer, S side SWB = 4 blocks
+    wide, R side RWB = 6."""
+    chunk = (band_join._CHUNK_BLOCKS, 1)
+    slots = RING // band_compare.LANES
+    return {"banded_compare_sum": [chunk],
+            "banded_compare_per_s": [chunk, (slots, 6)],
+            "banded_compare_first": [chunk],
+            "banded_interval_select": [(slots, 4)]}
+
+
+def _max_err(got, want) -> int:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+
+
+# ---- phases ---------------------------------------------------------------
 
 def phase_report() -> str:
     if not torch.cuda.is_available():
@@ -98,64 +224,70 @@ def phase_report() -> str:
 
 
 def phase_build():
-    t_kernels = _build.build_kernels()
-    t_host = _build.build_host()
-    band_compare._kernel()  # loads the library and binds the symbol
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        kernels = pool.submit(_build.build_kernels)
+        host = pool.submit(_build.build_host)
+        t_kernels, t_host = kernels.result(), host.result()
+    for name in KERNELS:
+        band_compare._kernel(name)  # loads the library and binds the symbol
     if datagen.native_lib() is None:
         raise RuntimeError("native host library did not load")
     print(f"[build] kernels {t_kernels:.2f}s ({_build.KERNEL_LIB}) "
-          f"host {t_host:.2f}s ({_build.HOST_LIB})")
+          f"host {t_host:.2f}s ({_build.HOST_LIB}), in parallel")
 
 
 def phase_kernel() -> dict:
-    rng = np.random.RandomState(SEED)
-    max_err = 0
-    for ch, w in KERNEL_SHAPES:
-        args = _chunk_inputs(ch, w, rng)
-        got = int(band_compare.banded_compare_sum(*args))
-        want = int(band_compare.banded_compare_sum_ref(*args))
-        torch.cuda.synchronize()
-        if got != want:
-            raise AssertionError(f"kernel {got} != plain {want} at CH={ch} W={w}")
-        max_err = max(max_err, abs(got - want))
-    small = _chunk_inputs(2048, 1, rng)
-    k_small = _time_ms(lambda: band_compare.banded_compare_sum(*small), 50)
-    p_small = _time_ms(lambda: band_compare.banded_compare_sum_ref(*small), 5)
-    # the chunk shape the headline run launches (W = 1)
-    main = _chunk_inputs(band_join._CHUNK_BLOCKS, 1, rng)
-    if int(band_compare.banded_compare_sum(*main)) != int(
-            band_compare.banded_compare_sum_ref(*main)):
-        raise AssertionError("kernel != plain at the main-path chunk shape")
-    k_main = _time_ms(lambda: band_compare.banded_compare_sum(*main), 20)
-    p_main = _time_ms(lambda: band_compare.banded_compare_sum_ref(*main), 3)
-    print(f"[kernel] equal to plain at (CH, W) in {KERNEL_SHAPES} and "
-          f"({band_join._CHUNK_BLOCKS}, 1); (2048,1): kernel {k_small:.4f} ms "
-          f"plain {p_small:.4f} ms; ({band_join._CHUNK_BLOCKS},1): kernel "
-          f"{k_main:.4f} ms plain {p_main:.4f} ms")
-    return {"max_abs_err": max_err, "ms": k_main, "plain_ms": p_main}
+    """Per kernel: max |kernel - plain| over every shape, and both times at
+    its first main-path shape."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    stats = {}
+    for name, (wrapper, plain, make, _) in KERNELS.items():
+        main = _main_shapes()[name]
+        err = 0
+        for ch, w in SMALL_SHAPES + main:
+            args = make(gen, ch, w * band_compare.LANES)
+            err = max(err, _max_err(wrapper(*args), plain(*args)))
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"{name}: kernel != plain at CH={ch} W={w}"
+                                     f" (max abs err {err})")
+        ch, w = main[0]
+        args = make(gen, ch, w * band_compare.LANES)
+        ms = _time_ms(lambda: wrapper(*args), 20)
+        plain_ms = _time_ms(lambda: plain(*args), 3)
+        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(f"[kernel] {name}: equal to plain at (CH, W) in "
+              f"{SMALL_SHAPES + main}; at {main[0]}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+    return stats
 
 
 def _relations(rk, rp, sk, sp):
-    return (Relation.from_numpy(rk, rp, device="cuda"),
-            Relation.from_numpy(sk, sp, device="cuda"))
+    return (Relation.from_numpy(rk, rp, device=DEVICE),
+            Relation.from_numpy(sk, sp, device=DEVICE))
+
+
+def _max_rounds(r: Relation, s: Relation, w: int) -> int:
+    r_sv, _ = band_join.sort_by_key(r.keys, r.payload)
+    s_sv, _ = band_join.sort_by_key(s.keys, s.payload)
+    lo, hi = band_join.block_windows(r_sv, s_sv)
+    return int(((hi - lo + (w - 1)) // w).max())
 
 
 def phase_mid():
-    engine = ClusteredJoin(device="cuda")
-    n = 1 << 24
+    engine = ClusteredJoin(device=DEVICE)
+    n = 1 << MID_SCALE
     rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
     ones = np.ones(n, np.int32)
     r, s = _relations(rk, ones, sk, ones)
-    want = _oracle_value(24, 0.0)
-    t_uni = float("inf")
-    for _ in range(1 + REPS):  # the first call is the warm-up
-        t0 = time.perf_counter()
-        uni = engine.aggregate(r, s).aggregate
-        t_uni = min(t_uni, time.perf_counter() - t0)
-        if uni != want:
-            raise AssertionError(f"2^24 uniform: {uni} != oracle {want}")
+    want = _oracle_value(MID_SCALE, 0.0)
+    uni = engine.aggregate(r, s).aggregate   # warm-up
+    t_uni, uni = _best_s(lambda: engine.aggregate(r, s).aggregate)
+    if uni != want:
+        raise AssertionError(f"2^{MID_SCALE} uniform: {uni} != oracle {want}")
 
-    n = 1 << 22
+    n = 1 << (MID_SCALE - 2)
     rk, sk = datasets.make_pk_fk(n, n, skew=1.05, seed=SEED)
     rng = np.random.RandomState(SEED)
     rp = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
@@ -164,14 +296,16 @@ def phase_mid():
     got = engine.aggregate(r, s).aggregate
     want = datagen.oracle_join_aggregate(rk, rp, sk, sp)
     if got != want:
-        raise AssertionError(f"2^22 zipf 1.05: {got} != C++ oracle {want}")
+        raise AssertionError(f"zipf 1.05: {got} != C++ oracle {want}")
     rounds = _max_rounds(r, s, engine.config.band_window_blocks)
-    print(f"[mid] 2^24 uniform = {uni} (oracle), best of {REPS} "
-          f"{t_uni * 1e3:.3f} ms; "
-          f"2^22 zipf1.05 = {got} (C++ oracle {want}), max rounds {rounds}")
+    print(f"[mid] 2^{MID_SCALE} uniform = {uni} (oracle), best of {REPS} "
+          f"{t_uni * 1e3:.3f} ms; 2^{MID_SCALE - 2} zipf1.05 = {got} "
+          f"(C++ oracle {want}), max rounds {rounds}")
 
 
-def phase_headline() -> int:
+def phase_headline():
+    """Returns the launch counts of one join and its inputs (numpy keys,
+    device keys) for the ring leg."""
     n = 1 << HEADLINE_SCALE
     t0 = time.perf_counter()
     rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
@@ -179,48 +313,232 @@ def phase_headline() -> int:
     r, s = _relations(rk, ones, sk, ones)
     t_data = time.perf_counter() - t0
     want = _oracle_value(HEADLINE_SCALE, 0.0)
-    engine = ClusteredJoin(device="cuda")
+    engine = ClusteredJoin(device=DEVICE)
     torch.cuda.reset_peak_memory_stats()
 
-    band_compare.LAUNCHES = 0
-    res = engine.aggregate(r, s)
-    launches = band_compare.LAUNCHES
-    if launches <= 0:
-        raise AssertionError("the main path launched no band_compare kernel")
-    best = float("inf")
-    for _ in range(REPS):
-        if res.aggregate != want:
-            raise AssertionError(f"2^27 uniform: {res.aggregate} != oracle {want}")
-        t0 = time.perf_counter()
-        res = engine.aggregate(r, s)
-        best = min(best, time.perf_counter() - t0)
+    res, launches = _launched(lambda: engine.aggregate(r, s))
+    _require(launches, "headline", "banded_compare_sum")
     if res.aggregate != want:
-        raise AssertionError(f"2^27 uniform: {res.aggregate} != oracle {want}")
+        raise AssertionError(f"headline: {res.aggregate} != oracle {want}")
+    best, agg = _best_s(lambda: engine.aggregate(r, s).aggregate)
+    if agg != want:
+        raise AssertionError(f"headline: {agg} != oracle {want}")
     peak = torch.cuda.max_memory_allocated()
     rounds = _max_rounds(r, s, engine.config.band_window_blocks)
-    print(f"[headline] 2^27 x 2^27 uniform = {res.aggregate} (oracle {want}); "
+    print(f"[headline] 2^{HEADLINE_SCALE} per side uniform = {agg} "
+          f"(oracle {want}); "
           f"best of {REPS} {best * 1e3:.3f} ms, "
           f"{2 * n / best / 1e6:.1f} Mrows/s; peak device memory "
           f"{peak / 2**30:.2f} GiB; chunk {band_join._CHUNK_BLOCKS} blocks; "
-          f"rounds {rounds}; kernel launches per join {launches}; "
+          f"rounds {rounds}; launches per join {launches}; "
           f"data {t_data:.1f}s")
+    return launches, (rk, sk, r.keys, s.keys)
+
+
+def _key_payloads(r_keys, s_keys):
+    """(R payloads 7k+1, S payloads k ^ KEY_MIX), numpy or torch int32."""
+    if isinstance(r_keys, torch.Tensor):
+        return wrap_i32(7 * r_keys.long() + 1), s_keys ^ KEY_MIX
+    return ((7 * r_keys.astype(np.int64) + 1).astype(np.int32),
+            s_keys ^ np.int32(KEY_MIX))
+
+
+def _pair_multiset(out_r: np.ndarray, out_s: np.ndarray) -> np.ndarray:
+    return np.sort((out_r.astype(np.int64) << 32)
+                   | (out_s.astype(np.int64) & 0xFFFFFFFF))
+
+
+def phase_materialize(big):
+    """(a) the fast path at RING rows per side; (b) the config-2 ring on
+    the headline's inputs. Returns the launch counts of (a) and (b)."""
+    engine = ClusteredJoin(device=DEVICE)
+    n = RING
+    rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
+    rp, sp = _key_payloads(rk, sk)
+    r, s = _relations(rk, rp, sk, sp)
+    res, fast = _launched(lambda: engine.materialize(r, s, capacity=RING))
+    _require(fast, "materialize (a), fast path", "banded_compare_first",
+             "banded_interval_select", "banded_compare_per_s")
+    t_fast, res = _best_s(lambda: engine.materialize(r, s, capacity=RING))
+    want = oracle.join_materialize(rk, rp, sk, sp)
+    if res.count != want.shape[0] or want.shape[0] > RING:
+        raise AssertionError(f"materialize (a): total {res.count} != "
+                             f"oracle {want.shape[0]}")
+    pad = np.zeros(RING - want.shape[0], np.int32)
+    got = _pair_multiset(*(x.cpu().numpy() for x in res.pairs))
+    if not np.array_equal(got, _pair_multiset(np.concatenate([want[:, 0], pad]),
+                                              np.concatenate([want[:, 1], pad]))):
+        raise AssertionError("materialize (a): pairs != oracle multiset")
+    total_a = res.count
+    del r, s, res, got, want
+
+    rk, sk, r_keys, s_keys = big
+    r, s = (Relation(k, p) for k, p in
+            zip((r_keys, s_keys), _key_payloads(r_keys, s_keys)))
+    res, ring = _launched(lambda: engine.materialize(r, s, capacity=RING))
+    _require(ring, "materialize (b), slot path", "banded_compare_first")
+    if ring["banded_interval_select"]:
+        raise AssertionError("ring: the fast path ran on a wrapped ring")
+    t_ring, res = _best_s(lambda: engine.materialize(r, s, capacity=RING))
+    total = res.count
+    want_total = _oracle_value(HEADLINE_SCALE, 0.0) & 0xFFFFFFFF
+    if total != want_total or total <= RING:
+        raise AssertionError(f"ring: total {total} != oracle {want_total}, "
+                             f"or no lap around {RING} slots")
+    # the S-sorted match stream: every S key, in order, once per R match
+    cnt_r = np.bincount(rk)
+    s_sorted = np.sort(sk, kind="stable")
+    mult = np.where(s_sorted < cnt_r.size,
+                    cnt_r[np.minimum(s_sorted, cnt_r.size - 1)], 0)
+    stream = np.repeat(s_sorted, mult)
+    if stream.size != total:
+        raise AssertionError(f"ring: stream {stream.size} != {total}")
+    j = np.arange(RING, dtype=np.int64)
+    keys = stream[j + RING * ((total - 1 - j) // RING)]  # last lap wins
+    exp_r, exp_s = _key_payloads(keys, keys)
+    if not (np.array_equal(res.pairs[0].cpu().numpy(), exp_r)
+            and np.array_equal(res.pairs[1].cpu().numpy(), exp_s)):
+        raise AssertionError("ring != the ring of the sorted S keys")
+    print(f"[materialize] (a) {RING} x {RING} into {RING}: {total_a} pairs = "
+          f"oracle multiset, fast path, best of {REPS} {t_fast * 1e3:.3f} ms, "
+          f"launches {fast}; (b) 2^{HEADLINE_SCALE} per side, ring {RING}: "
+          f"total {total} "
+          f"(oracle), ring exact, slot path, best of {REPS} "
+          f"{t_ring * 1e3:.3f} ms, launches {ring}")
+    return fast, ring
+
+
+def phase_late():
+    engine = ClusteredJoin(device=DEVICE)
+    n = 1 << MID_SCALE
+    rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
+    rng = np.random.RandomState(SEED + 2)
+    r_cols = rng.randint(-2**31, 2**31, (n, 4), dtype=np.int64).astype(np.int32)
+    s_cols = rng.randint(-2**31, 2**31, (n, 2), dtype=np.int64).astype(np.int32)
+    # payloads default to row ids, made on the card
+    r = Relation.from_numpy(rk, device=DEVICE)
+    s = Relation.from_numpy(sk, device=DEVICE)
+    rc, sc = (torch.from_numpy(c).to(DEVICE) for c in (r_cols, s_cols))
+    res, launches = _launched(lambda: engine.late_aggregate(r, s, rc, sc))
+    _require(launches, "late", "banded_compare_per_s")
+    t, agg = _best_s(lambda: engine.late_aggregate(r, s, rc, sc).aggregate)
+    ids = np.arange(n, dtype=np.int32)
+    want = oracle.join_late_materialize_sum(rk, ids, sk, ids, r_cols, s_cols)
+    if agg != want or res.aggregate != want:
+        raise AssertionError(f"late aggregate {agg} != oracle {want}")
+    print(f"[late] 2^{MID_SCALE} per side, 4 R + 2 S columns = {agg} "
+          f"(oracle), best of "
+          f"{REPS} {t * 1e3:.3f} ms, launches {launches}")
     return launches
 
 
+def _direct_config3_oracle(rk, rp, sk, s_filter, s_gid, lo, hi, groups):
+    """Config 3's answer by direct addressing: R keys are a permutation of
+    [0, n_r), so pay[k] is the payload of key k and every S key matches
+    once; per-group sums of payloads < 100 stay far below 2^53, exact in
+    float64."""
+    n_r = rk.size
+    if rk.min() < 0 or rk.max() >= n_r or not (np.bincount(rk, minlength=n_r) == 1).all():
+        raise AssertionError("config-3 R keys are not a permutation")
+    pay = np.empty(n_r, np.int64)
+    pay[rk] = rp
+    keep = (s_filter >= lo) & (s_filter < hi)
+    g = s_gid[keep]
+    counts = np.bincount(g, minlength=groups).astype(np.int64)
+    sums = np.bincount(g, weights=pay[sk[keep]].astype(np.float64),
+                       minlength=groups).astype(np.int64)
+    as_i32 = lambda x: (x & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return as_i32(counts), as_i32(sums)
+
+
+def phase_pipeline():
+    """Returns the launch counts of the fused pipeline's first call."""
+    c = C3
+    t0 = time.perf_counter()
+    inputs = datasets.make_config3(c["n_r"], c["n_s"], c["groups"])
+    want = _direct_config3_oracle(*inputs, c["lo"], c["hi"], c["groups"])
+    args = [torch.from_numpy(a).to(DEVICE) for a in inputs]
+    del inputs
+    t_data = time.perf_counter() - t0
+    fused = lambda: pipelines.filter_probe_groupby(
+        *args, c["lo"], c["hi"], c["groups"])
+    streamed = lambda: pipelines.filter_probe_groupby_streamed(
+        *args, c["lo"], c["hi"], c["groups"], segments=c["segments"])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got, launches = _launched(fused)
+    _require(launches, "pipeline", "banded_compare_per_s")
+    t_fused, got = _best_s(fused)
+    peak_fused = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_streamed, got_s = _best_s(streamed)
+    peak_streamed = torch.cuda.max_memory_allocated()
+    for name, res in (("fused", got), ("streamed", got_s)):
+        for g, w, what in zip(res, want, ("COUNT", "SUM")):
+            if not np.array_equal(g.cpu().numpy(), w):
+                raise AssertionError(f"config 3 {name} {what} != oracle")
+    del args
+
+    # the general numpy oracle, at a size where it runs in seconds
+    rng = np.random.default_rng(7)
+    (n_r, n_s), groups = C3_GENERAL, c["groups"]
+    rk = rng.integers(0, n_r // 2, n_r).astype(np.int32)      # duplicate keys
+    rp = rng.integers(-2**31, 2**31, n_r).astype(np.int32)
+    sk = np.where(rng.random(n_s) < 0.75, rk[rng.integers(0, n_r, n_s)],
+                  rng.integers(n_r // 2, n_r, n_s)).astype(np.int32)
+    s_filter = rng.integers(0, 1000, n_s).astype(np.int32)
+    s_gid = rng.integers(0, groups, n_s).astype(np.int32)
+    mid = (rk, rp, sk, s_filter, s_gid)
+    got_m = pipelines.filter_probe_groupby(
+        *(torch.from_numpy(a).to(DEVICE) for a in mid), c["lo"], c["hi"], groups)
+    want_m = oracle.filter_probe_groupby(*mid, c["lo"], c["hi"], groups)
+    for g, w in zip(got_m, want_m):
+        if not np.array_equal(g.cpu().numpy(), w):
+            raise AssertionError("general pipeline != numpy oracle")
+    print(f"[pipeline] config 3, {c['n_r']} x {c['n_s']}, {groups} groups, filter "
+          f"[{c['lo']}, {c['hi']}): fused = streamed({c['segments']}) = "
+          f"direct oracle; fused best of {REPS} {t_fused * 1e3:.3f} ms "
+          f"({c['n_s'] / t_fused / 1e6:.1f} Mrows/s), peak "
+          f"{peak_fused / 2**30:.2f} GiB; streamed best of {REPS} "
+          f"{t_streamed * 1e3:.3f} ms, peak {peak_streamed / 2**30:.2f} GiB; "
+          f"launches per fused call {launches}; {n_r} dup-R x {n_s} = numpy "
+          f"oracle; data {t_data:.1f}s")
+    return launches
+
+
+def _timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name} {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def main():
-    kind = phase_report()
-    phase_build()
-    kstats = phase_kernel()
-    phase_mid()
-    launches = phase_headline()
+    kind = _timed("report", phase_report)
+    _timed("build", phase_build)
+    kstats = _timed("kernel", phase_kernel)
+    _timed("mid", phase_mid)
+    head, big = _timed("headline", phase_headline)
+    fast, ring = _timed("materialize", phase_materialize, big)
+    del big
+    torch.cuda.empty_cache()
+    _timed("late", phase_late)
+    pipe = _timed("pipeline", phase_pipeline)
+    # each kernel's launches on its path: the aggregate, the config-3
+    # pipeline, the config-2 ring, the 2^24 fast-path materialize
+    launches = {"banded_compare_sum": head["banded_compare_sum"],
+                "banded_compare_per_s": pipe["banded_compare_per_s"],
+                "banded_compare_first": ring["banded_compare_first"],
+                "banded_interval_select": fast["banded_interval_select"]}
     print(json.dumps({"kernels": [{
-        "name": "band_compare_sum",
+        "name": name,
         "route": "cuda",
-        "source": "icde2019_gpu_join_tpu_torch/csrc/band_compare.cu",
-        "replaces": "icde2019_gpu_join_tpu/ops/band_compare_pallas.py:44",
-        "launches": launches,
-        **kstats,
-    }]}))
+        "source": SOURCE,
+        "replaces": f"{PALLAS}:{KERNELS[name][3]}",
+        "launches": launches[name],
+        **kstats[name],
+    } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

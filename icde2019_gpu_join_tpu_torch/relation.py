@@ -19,7 +19,8 @@ class Relation:
                  device=None):
         device = torch.device(device) if device is not None else keys.device
         if payload is None:
-            payload = torch.arange(keys.shape[0], dtype=torch.int32)
+            payload = torch.arange(keys.shape[0], dtype=torch.int32,
+                                   device=device)
         for name, col in (("keys", keys), ("payload", payload)):
             if col.dtype != torch.int32 or col.dim() != 1:
                 raise ValueError(f"{name} must be a 1-D int32 tensor, got "

@@ -84,3 +84,18 @@ def make_pk_fk(
                 n_s, min(n_r, (1 << 31) - 2), seed + 1),
         )
     return r, s
+
+
+def make_config3(n_r: int, n_s: int, groups: int = 64, seed: int = 42):
+    """BASELINE.json config 3's inputs, as `benchmarks/run_configs.py`
+    (`config3`) makes them: R keys a permutation of [0, n_r) with payloads in
+    [1, 100), S keys drawn from R's, a filter column in [0, 1000) and group
+    ids in [0, groups). numpy PCG64 from `seed`, so every package gets
+    byte-identical inputs. Returns (rk, rp, sk, s_filter, s_gid), int32."""
+    rng = np.random.default_rng(seed)
+    rk = rng.permutation(n_r).astype(np.int32)
+    rp = rng.integers(1, 100, n_r).astype(np.int32)
+    sk = rk[rng.integers(0, n_r, n_s)].astype(np.int32)
+    s_filter = rng.integers(0, 1000, n_s).astype(np.int32)
+    s_gid = rng.integers(0, groups, n_s).astype(np.int32)
+    return rk, rp, sk, s_filter, s_gid

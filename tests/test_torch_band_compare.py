@@ -1,11 +1,12 @@
-"""The port's ops/band_compare.py against the JAX Pallas kernel, which runs
-here in interpret mode as tests/test_band_join.py runs it."""
+"""The port's ops/band_compare.py against the JAX Pallas kernels, which run
+here in interpret mode as tests/test_band_join.py runs them."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from icde2019_gpu_join_tpu.ops import band_compare_pallas as P
 from icde2019_gpu_join_tpu.ops.band_compare_pallas import banded_compare_sum as jax_sum
 from icde2019_gpu_join_tpu_torch.ops import band_compare
 
@@ -36,7 +37,7 @@ def test_ref_matches_jax_kernel(ch, wb, key_range, pay):
 def test_cpu_tensors_take_plain_version():
     arrs = [torch.from_numpy(a) for a in
             _inputs(np.random.RandomState(3), 8, 384, 20, -2**31, 2**31)]
-    before = band_compare.LAUNCHES
+    before = dict(band_compare.LAUNCHES)
     got = band_compare.banded_compare_sum(*arrs)
     assert band_compare.LAUNCHES == before
     assert int(got) == int(band_compare.banded_compare_sum_ref(*arrs))
@@ -63,3 +64,115 @@ def test_wrapper_rejects_bad_inputs(bad):
         rk = torch.zeros((4, 256), dtype=torch.int32)[:, ::2]
     with pytest.raises(ValueError):
         band_compare.banded_compare_sum(sk, sp, rk, rp)
+
+
+def _full(rng, shape):
+    return rng.randint(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
+
+def _per_s_inputs(rng, ch=8, wb=256, key_range=12):
+    """Dense matches, full-range payloads, and one row whose window holds
+    only the R-pad sentinel (an empty window)."""
+    sk = rng.randint(0, key_range, (ch, 128)).astype(np.int32)
+    rk = rng.randint(0, key_range, (ch, wb)).astype(np.int32)
+    rk[2] = 0x7FFFFFFF
+    return sk, rk, _full(rng, (ch, wb))
+
+
+def _first_inputs(rng, ch=8, wb=256, key_range=12):
+    sk, rk, _ = _per_s_inputs(rng, ch, wb, key_range)
+    gidx = rng.permutation(ch * wb).reshape(ch, wb).astype(np.int32)
+    return sk, rk, gidx
+
+
+def _interval_inputs(rng, ch=4, wb=256):
+    """Disjoint [lo, hi) intervals per row (some empty, one row all empty),
+    full-range payloads, and slots on both sides of every interval."""
+    widths = rng.randint(0, 5, (ch, wb)).astype(np.int32)
+    widths[1] = 0
+    lo = (np.cumsum(widths, axis=1) - widths).astype(np.int32)
+    hi = (lo + widths).astype(np.int32)
+    pos = rng.randint(-2, int(hi.max()) + 3, (ch, 128)).astype(np.int32)
+    return (pos, lo, hi, _full(rng, (ch, wb)), _full(rng, (ch, wb)),
+            np.ones((ch, wb), np.int32))
+
+
+KERNELS = {
+    # name: (port wrapper, its plain version, JAX Pallas kernel, inputs)
+    "per_s": (band_compare.banded_compare_per_s,
+              band_compare.banded_compare_per_s_ref,
+              P.banded_compare_per_s, _per_s_inputs),
+    "first": (band_compare.banded_compare_first,
+              band_compare.banded_compare_first_ref,
+              P.banded_compare_first, _first_inputs),
+    "interval": (band_compare.banded_interval_select,
+                 band_compare.banded_interval_select_ref,
+                 P.banded_interval_select, _interval_inputs),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_plain_version_matches_jax_kernel(name):
+    _, ref, pallas, make = KERNELS[name]
+    arrs = make(np.random.RandomState(len(name)))
+    want = pallas(*map(jnp.asarray, arrs), interpret=True)
+    got = ref(*map(torch.from_numpy, arrs))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_plain_version_row_steps(name, monkeypatch):
+    """The plain versions walk a chunk in row steps; the step does not
+    change the result."""
+    _, ref, _, make = KERNELS[name]
+    arrs = [torch.from_numpy(a) for a in make(np.random.RandomState(5))]
+    whole = ref(*arrs)
+    monkeypatch.setattr(band_compare, "_REF_ELEMS", 1)
+    for g, w in zip(ref(*arrs), whole):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_cpu_tensors_take_plain_version_per_kernel(name):
+    wrapper, ref, _, make = KERNELS[name]
+    arrs = [torch.from_numpy(a) for a in make(np.random.RandomState(9))]
+    before = dict(band_compare.LAUNCHES)
+    got = wrapper(*arrs)
+    assert band_compare.LAUNCHES == before
+    for g, w in zip(got, ref(*arrs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+@pytest.mark.parametrize("bad", ["dtype", "lane_width", "rows", "window_shape",
+                                 "strided", "device"])
+def test_new_wrappers_reject_bad_inputs(name, bad):
+    wrapper, _, _, make = KERNELS[name]
+    arrs = [torch.from_numpy(a) for a in make(np.random.RandomState(2))]
+    if bad == "dtype":
+        arrs[0] = arrs[0].long()
+    elif bad == "lane_width":
+        arrs[0] = arrs[0][:, :64].contiguous()
+    elif bad == "rows":
+        arrs[1] = arrs[1][:3]
+    elif bad == "window_shape":
+        arrs[-1] = torch.zeros((arrs[-1].shape[0], 384), dtype=torch.int32)
+    elif bad == "strided":
+        arrs[1] = torch.zeros((arrs[1].shape[0], 2 * arrs[1].shape[1]),
+                              dtype=torch.int32)[:, ::2]
+    else:
+        arrs[-1] = arrs[-1].to("meta")
+    with pytest.raises(ValueError):
+        wrapper(*arrs)
+
+
+def test_reset_launches_zeroes_every_kernel():
+    assert set(band_compare.LAUNCHES) == {
+        "banded_compare_sum", "banded_compare_per_s", "banded_compare_first",
+        "banded_interval_select"}
+    band_compare.LAUNCHES["banded_compare_first"] += 3
+    band_compare.reset_launches()
+    assert set(band_compare.LAUNCHES.values()) == {0}

@@ -93,6 +93,96 @@ def test_relation_rejects_non_int32():
         Relation(torch.zeros(4, dtype=torch.int64))
 
 
+@pytest.mark.parametrize("device", [None, "meta"])
+def test_relation_default_payload_is_row_ids_on_its_device(device):
+    keys = torch.arange(300, 0, -1, dtype=torch.int32)
+    rel = Relation(keys, device=device)
+    assert rel.payload.device == rel.keys.device == torch.device(device or "cpu")
+    assert rel.payload.dtype == torch.int32 and rel.payload.shape == (300,)
+    if device is None:
+        assert torch.equal(rel.payload, torch.arange(300, dtype=torch.int32))
+    rel = Relation.from_numpy(np.zeros(5, np.int32))
+    assert torch.equal(rel.payload, torch.arange(5, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n_r,n_s,dup,w", [
+    (1 << 12, 1 << 12, False, 1), (1 << 11, 1 << 13, True, 2),
+])
+def test_materialize_matches_jax(rng, n_r, n_s, dup, w):
+    rk, _, sk, _ = make_tables(rng, n_r=n_r, n_s=n_s, dup_build=dup)
+    rp = rng.randint(1, 1000, n_r).astype(np.int32)
+    sp = rng.randint(1, 1000, n_s).astype(np.int32)
+    (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
+    total = toracle.join_count(rk, sk)
+    cap = total + 300
+    res = ClusteredJoin(EngineConfig(band_window_blocks=w)).materialize(
+        tr, ts, capacity=cap)
+    want = JaxJoin(jconfig.EngineConfig(band_window_blocks=w)).materialize(
+        jr, js, capacity=cap)
+    assert res.count == want.count == total
+    assert res.timer.seconds("join") > 0
+
+    def multiset(out_r, out_s):
+        pairs = np.stack([np.asarray(out_r), np.asarray(out_s)], axis=1)
+        pairs = pairs[(pairs[:, 0] != 0) | (pairs[:, 1] != 0)]
+        return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+
+    got = multiset(*res.pairs)
+    np.testing.assert_array_equal(got, multiset(*want.pairs))
+    np.testing.assert_array_equal(got, toracle.join_materialize(rk, rp, sk, sp))
+
+
+def test_materialize_default_capacity_is_out_capacity(rng):
+    rk, rp, sk, sp = make_tables(rng, n_r=500, n_s=900)
+    tr, ts = Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)
+    res = ClusteredJoin(EngineConfig(out_capacity=1 << 10)).materialize(tr, ts)
+    assert res.pairs[0].shape == res.pairs[1].shape == (1 << 10,)
+    assert res.count == toracle.join_count(rk, sk)
+
+
+@pytest.mark.parametrize("c1,c2,dup", [(4, 2, False), (3, 0, True), (0, 0, False)])
+def test_late_aggregate_matches_jax(rng, c1, c2, dup):
+    rk, _, sk, _ = make_tables(rng, n_r=1 << 11, n_s=1 << 12, dup_build=dup)
+    r_cols = rng.randint(-2**31, 2**31, (rk.size, c1), dtype=np.int64).astype(np.int32)
+    s_cols = rng.randint(-2**31, 2**31, (sk.size, c2), dtype=np.int64).astype(np.int32)
+    r_ids = np.arange(rk.size, dtype=np.int32)
+    s_ids = rng.permutation(sk.size).astype(np.int32)   # payloads are row ids
+    tr = Relation.from_numpy(rk)
+    ts = Relation.from_numpy(sk, s_ids)
+    got = ClusteredJoin().late_aggregate(tr, ts, torch.from_numpy(r_cols),
+                                         torch.from_numpy(s_cols))
+    want = JaxJoin().late_aggregate(
+        JaxRelation(jnp.asarray(rk), jnp.asarray(r_ids)),
+        JaxRelation(jnp.asarray(sk), jnp.asarray(s_ids)),
+        jnp.asarray(r_cols), jnp.asarray(s_cols))
+    assert got.aggregate == want.aggregate == toracle.join_late_materialize_sum(
+        rk, r_ids, sk, s_ids, r_cols, s_cols)
+
+
+def test_late_aggregate_clamps_row_ids_like_jax():
+    rk = np.arange(6, dtype=np.int32)
+    sk = np.array([0, 1, 2, 5, 5, 9], np.int32)
+    r_ids = np.array([0, -1, 7, -9, 2, 5], np.int32)   # out of range, negative
+    s_ids = np.array([3, 20, -2, 0, 1, 4], np.int32)
+    r_cols = np.arange(12, dtype=np.int32).reshape(6, 2) * 1000
+    s_cols = np.arange(6, dtype=np.int32)[:, None] + 1
+    got = ClusteredJoin().late_aggregate(
+        Relation.from_numpy(rk, r_ids), Relation.from_numpy(sk, s_ids),
+        torch.from_numpy(r_cols), torch.from_numpy(s_cols))
+    want = JaxJoin().late_aggregate(
+        JaxRelation(jnp.asarray(rk), jnp.asarray(r_ids)),
+        JaxRelation(jnp.asarray(sk), jnp.asarray(s_ids)),
+        jnp.asarray(r_cols), jnp.asarray(s_cols))
+    assert got.aggregate == want.aggregate
+
+
+def test_late_aggregate_columns_must_be_on_the_engine_device():
+    r = Relation(torch.zeros(4, dtype=torch.int32))
+    cols = torch.zeros((4, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="r_cols is on meta"):
+        ClusteredJoin().late_aggregate(r, r, cols.to("meta"), cols)
+
+
 def test_make_pk_fk_byte_identical(tmp_path, monkeypatch):
     assert tdatagen.native_lib() is not None and jdatagen.native_lib() is not None
     monkeypatch.setenv("TPU_JOIN_DATA_DIR", str(tmp_path / "jax"))
@@ -139,6 +229,8 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch\n"
         "import icde2019_gpu_join_tpu_torch.models.joins\n"
         "import icde2019_gpu_join_tpu_torch.ops.band_join\n"
+        "import icde2019_gpu_join_tpu_torch.ops.filter\n"
+        "import icde2019_gpu_join_tpu_torch.models.pipelines\n"
         "import icde2019_gpu_join_tpu_torch.ops.band_compare\n"
         "import icde2019_gpu_join_tpu_torch.ops._build\n"
         "import icde2019_gpu_join_tpu_torch.datagen\n"
