@@ -8,10 +8,14 @@ its seconds:
   report     torch and CUDA versions, the card's name and power limit;
   build      the CUDA kernel library (nvcc, sm_90a) and the C++ host library,
              side by side;
-  kernel     each of the four kernels against its plain version on the card,
-             exact int32 equality at small shapes (W > 1, full-range
-             payloads, empty windows) and at the shape its path gives it,
-             with both times at that shape;
+  kernel     each of the five kernels against its plain version on the card,
+             exact int32 equality: the four banded kernels at small shapes
+             (W > 1, full-range payloads, empty windows) and at the shape
+             their path gives them, with both times at that shape; the
+             stream-range probe (kernel 5) at small plans (several partitions
+             per R tile, tiles with no chunks, a skewed tile with hundreds of
+             chunks, chunk counts past S, full-range payloads) and at
+             config 1's full plan, with both times there;
   mid        `ClusteredJoin.aggregate` at 2^24 x 2^24 uniform PK-FK (against
              the checked-in oracle value) and 2^22 x 2^22 Zipf z=1.05
              (against the C++ oracle);
@@ -24,6 +28,15 @@ its seconds:
              checked-in oracle value and the ring the one built in numpy from
              the sorted S keys (payloads are functions of the key, so the
              ring does not depend on tie order); best of 3;
+  partitioned  the radix-partitioned modes: `probe_mode="pallas"` at config
+             1 (2^20 x 2^24 PK-FK, full-range payloads) and 2^22 Zipf z=1.05
+             against the C++ oracle, and at config 2 (the headline's 2^27
+             relations at 18 bits) against the checked-in value, best of 3
+             with peak memory, work items, compares and the kernel's time at
+             that plan; `probe_mode="blocked"` aggregate, count, materialize
+             (into 2^24, multiset) and late aggregate at config 1 against the
+             numpy oracles; `probe_mode="sort_merge"` at 2^27 against the
+             checked-in value; `global_ht_join_aggregate` at config 1;
   late       `ClusteredJoin.late_aggregate` at 2^24 per side with 4 R and 2 S
              columns, against the numpy oracle;
   pipeline   BASELINE.json config 3, 2^24 R x 2^29 S, 64 groups, filter
@@ -32,8 +45,8 @@ its seconds:
              device memory; and the general numpy oracle at 2^20
              duplicate-key R x 2^23 S.
 
-The headline, materialize, late and pipeline phases each zero the
-kernels' launch counts just before they drive their path, read them just
+The headline, materialize, partitioned, late and pipeline phases each zero
+the kernels' launch counts just before they drive their path, read them just
 after, and fail if a kernel of the path did not launch. Then one JSON line
 on the kernels, and last the result line `{"ok": true, "device": {...}}`.
 Any failure raises, so the exit code is not 0 and no result line is
@@ -51,9 +64,12 @@ import numpy as np
 import torch
 
 from icde2019_gpu_join_tpu_torch import datagen
+from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
-from icde2019_gpu_join_tpu_torch.ops import _build, band_compare, band_join
+from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
+                                             perfect_hash, probe_ranges)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
+from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.relation import Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets, oracle
 
@@ -68,8 +84,21 @@ REPS = 3
 KEY_MIX = 0x5bd1e995   # S payload = key ^ KEY_MIX, R payload = 7 * key + 1
 C3 = dict(n_r=1 << 24, n_s=1 << 29, groups=64, lo=100, hi=600, segments=4)
 C3_GENERAL = (1 << 20, 1 << 23)   # (R, S) rows for the general numpy oracle
-PALLAS = "icde2019_gpu_join_tpu/ops/band_compare_pallas.py"
-SOURCE = "icde2019_gpu_join_tpu_torch/csrc/band_compare.cu"
+CONFIG1 = (1 << 20, 1 << 24)      # BASELINE.json config 1, pkfk_1Mx16M
+RANGE_TILE = 1024                 # probe_mode "pallas": max(1024, probe_tile_*)
+CONFIG2_BITS = 18                 # default_bits_for(2^27, 1024)
+BANDED_PALLAS = "icde2019_gpu_join_tpu/ops/band_compare_pallas.py"
+BANDED_SOURCE = "icde2019_gpu_join_tpu_torch/csrc/band_compare.cu"
+# kernel: (its CUDA source, the TPU kernel it replaces)
+ROUTES = {
+    "banded_compare_sum": (BANDED_SOURCE, f"{BANDED_PALLAS}:44"),
+    "banded_compare_per_s": (BANDED_SOURCE, f"{BANDED_PALLAS}:93"),
+    "banded_compare_first": (BANDED_SOURCE, f"{BANDED_PALLAS}:138"),
+    "banded_interval_select": (BANDED_SOURCE, f"{BANDED_PALLAS}:185"),
+    "probe_aggregate_ranges": (
+        "icde2019_gpu_join_tpu_torch/csrc/probe_ranges.cu",
+        "icde2019_gpu_join_tpu/ops/probe_pallas.py:76"),
+}
 
 
 def _oracle_value(scale: int, skew: float) -> int:
@@ -107,11 +136,12 @@ def _best_s(fn, reps: int = REPS):
 
 def _launched(fn):
     """Zero the launch counts, run fn once (synchronised), and return
-    (fn's result, the launch counts of that run)."""
+    (fn's result, the launch counts of that run, every kernel)."""
     band_compare.reset_launches()
+    probe_ranges.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(band_compare.LAUNCHES)
+    return out, {**band_compare.LAUNCHES, **probe_ranges.LAUNCHES}
 
 
 def _require(counts: dict, path: str, *names):
@@ -174,17 +204,16 @@ def _interval_args(gen, ch, wb):
 
 
 BC = band_compare
-# name: (wrapper, plain version, inputs, line of the TPU kernel)
+# the banded kernels, name: (wrapper, plain version, inputs)
 KERNELS = {
     "banded_compare_sum": (BC.banded_compare_sum, BC.banded_compare_sum_ref,
-                           _sum_args, 44),
+                           _sum_args),
     "banded_compare_per_s": (BC.banded_compare_per_s,
-                             BC.banded_compare_per_s_ref, _per_s_args, 93),
+                             BC.banded_compare_per_s_ref, _per_s_args),
     "banded_compare_first": (BC.banded_compare_first,
-                             BC.banded_compare_first_ref, _first_args, 138),
+                             BC.banded_compare_first_ref, _first_args),
     "banded_interval_select": (BC.banded_interval_select,
-                               BC.banded_interval_select_ref, _interval_args,
-                               185),
+                               BC.banded_interval_select_ref, _interval_args),
 }
 
 
@@ -230,6 +259,7 @@ def phase_build():
         t_kernels, t_host = kernels.result(), host.result()
     for name in KERNELS:
         band_compare._kernel(name)  # loads the library and binds the symbol
+    probe_ranges._kernel()
     if datagen.native_lib() is None:
         raise RuntimeError("native host library did not load")
     print(f"[build] kernels {t_kernels:.2f}s ({_build.KERNEL_LIB}) "
@@ -242,7 +272,7 @@ def phase_kernel() -> dict:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     stats = {}
-    for name, (wrapper, plain, make, _) in KERNELS.items():
+    for name, (wrapper, plain, make) in KERNELS.items():
         main = _main_shapes()[name]
         err = 0
         for ch, w in SMALL_SHAPES + main:
@@ -261,6 +291,93 @@ def phase_kernel() -> dict:
               f"{SMALL_SHAPES + main}; at {main[0]}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
     return stats
+
+
+# ---- kernel 5: the stream-range probe --------------------------------------
+
+def _range_inputs(gen, rs: np.random.RandomState, tr: int, ts: int,
+                  n_tiles: int, n_chunks: int, nch):
+    """Synthetic columns (dense keys, full-range payloads) and a plan with
+    random chunk-aligned starts and the given chunk counts."""
+    cols = (_ints(gen, 0, 24, (n_tiles * tr,)), _full(gen, (n_tiles * tr,)),
+            _ints(gen, 0, 24, (n_chunks * ts,)), _full(gen, (n_chunks * ts,)))
+    s_start = (rs.randint(0, n_chunks, n_tiles) * ts).astype(np.int32)
+    return cols, s_start, np.asarray(nch, np.int32)
+
+
+def _plan_of(r: Relation, s: Relation, bits: int, tr: int, ts: int):
+    """Both sides partitioned on the card, padded, and the range plan."""
+    pr = radix_partition(r.keys, r.payload, bits)
+    ps = radix_partition(s.keys, s.payload, bits)
+    s_start, s_nch = probe_ranges.plan_ranges(
+        pr.offsets.cpu().numpy(), ps.offsets.cpu().numpy(), r.num_rows, tr, ts)
+    cols = (*probe_ranges.pad_for_probe(pr.keys, pr.payload, tr),
+            *probe_ranges.pad_for_probe(ps.keys, ps.payload, ts))
+    return cols, s_start, s_nch
+
+
+def _range_work(cols, s_start, s_nch, tr: int, ts: int):
+    """(work items, compares) of one call."""
+    tile, _ = probe_ranges._items(s_start, s_nch, cols[2].shape[0], ts)
+    return tile.size, tile.size * tr * ts
+
+
+def _config1_tables():
+    """Config 1's keys and full-range payloads (numpy)."""
+    rk, sk = datasets.make_pk_fk(*CONFIG1, seed=SEED)
+    rng = np.random.RandomState(SEED + 3)
+    rp = rng.randint(-2**31, 2**31, rk.size, dtype=np.int64).astype(np.int32)
+    sp = rng.randint(-2**31, 2**31, sk.size, dtype=np.int64).astype(np.int32)
+    return rk, rp, sk, sp
+
+
+def phase_kernel_ranges() -> dict:
+    """Kernel 5 against its plain version: small synthetic and partitioned
+    plans, then config 1's full plan, where both are timed."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    rs = np.random.RandomState(SEED)
+    plans = [   # (tr, ts, tiles, S chunks, chunks per tile)
+        (1024, 1024, 8, 40, [0, 1, 3, 40, 2, 50, 0, 5]),
+        (2048, 128, 4, 300, [300, 0, 17, 1]),
+        (1024, 1152, 5, 6, [1, 6, 0, 2, 9]),
+    ]
+    cases = [(_range_inputs(gen, rs, *p), p[0], p[1]) for p in plans]
+    rk = rs.permutation(1 << 17)[:1 << 16].astype(np.int32)      # skewed S
+    sk = rk[np.minimum(rs.zipf(1.3, 1 << 18) - 1, rk.size - 1)]
+    full = lambda n: rs.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    for bits in (6, 10):
+        rels = _relations(rk, full(rk.size), sk, full(sk.size))
+        cases.append((_plan_of(*rels, bits, 1024, 1024), 1024, 1024))
+    rels = _relations(*_config1_tables())
+    cases.append((_plan_of(*rels, 13, RANGE_TILE, RANGE_TILE), RANGE_TILE,
+                  RANGE_TILE))
+    del rels
+    err, shapes = 0, []
+    for (cols, s_start, s_nch), tr, ts in cases:
+        args = (*cols, s_start, s_nch)
+        got = probe_ranges.probe_aggregate_ranges(*args, tile_r=tr, tile_s=ts)
+        want = probe_ranges.probe_aggregate_ranges_ref(*args, tile_r=tr,
+                                                       tile_s=ts)
+        err = max(err, _max_err(got, want))
+        torch.cuda.synchronize()
+        items, compares = _range_work(cols, s_start, s_nch, tr, ts)
+        shapes.append(f"{tr}x{ts}:{items} items, max {int(s_nch.max())} chunks")
+        if err:
+            raise AssertionError(f"probe_aggregate_ranges: kernel != plain at "
+                                 f"{shapes[-1]} (max abs err {err})")
+    (cols, s_start, s_nch), tr, ts = cases[-1]
+    args = (*cols, s_start, s_nch)
+    fn = lambda: probe_ranges.probe_aggregate_ranges(*args, tile_r=tr, tile_s=ts)
+    ms = _time_ms(fn, 20)
+    plain_ms = _time_ms(lambda: probe_ranges.probe_aggregate_ranges_ref(
+        *args, tile_r=tr, tile_s=ts), 3)
+    items, compares = _range_work(*cases[-1][0], tr, ts)
+    print(f"[kernel] probe_aggregate_ranges: equal to plain at {shapes}; at "
+          f"config 1's plan ({items} items, {compares:.3e} compares): kernel "
+          f"{ms:.4f} ms ({compares / ms / 1e9:.3f} T compares/s), plain "
+          f"{plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def _relations(rk, rp, sk, sp):
@@ -408,6 +525,152 @@ def phase_materialize(big):
     return fast, ring
 
 
+def _overflow_rows(rel: Relation) -> int:
+    """Build rows past their bucket's slots in the default global table."""
+    log_buckets = perfect_hash.default_log_buckets(rel.num_rows)
+    return int(perfect_hash.global_ht_build(rel.keys, rel.payload,
+                                            log_buckets, 8)[-1])
+
+
+def _partitioned_config1(lines: list) -> dict:
+    """"pallas", "blocked" (aggregate, count, materialize, late aggregate)
+    and the global hash table at config 1; returns the "pallas" launches."""
+    rk, rp, sk, sp = _config1_tables()
+    r, s = _relations(rk, rp, sk, sp)
+    want = datagen.oracle_join_aggregate(rk, rp, sk, sp)
+    ranges = ClusteredJoin(EngineConfig(probe_mode="pallas"), device=DEVICE)
+    res, launches = _launched(lambda: ranges.aggregate(r, s))
+    _require(launches, "pallas config 1", "probe_aggregate_ranges")
+    t_c1, agg = _best_s(lambda: ranges.aggregate(r, s).aggregate)
+    if res.aggregate != want or agg != want:
+        raise AssertionError(f"pallas config 1: {agg} != C++ oracle {want}")
+    lines.append(f"pallas config 1 = {agg} (C++ oracle), best of {REPS} "
+                 f"{t_c1 * 1e3:.3f} ms, launches {launches}")
+
+    blocked = ClusteredJoin(EngineConfig(probe_mode="blocked"), device=DEVICE)
+    t_agg, agg = _best_s(lambda: blocked.aggregate(r, s).aggregate)
+    cnt = blocked.count(r, s).count
+    if agg != want or cnt != oracle.join_count(rk, sk):
+        raise AssertionError(f"blocked config 1: aggregate {agg} (oracle "
+                             f"{want}), count {cnt}")
+    t_mat, res = _best_s(lambda: blocked.materialize(r, s, capacity=RING))
+    pairs = oracle.join_materialize(rk, rp, sk, sp)
+    if res.count != pairs.shape[0] or pairs.shape[0] > RING:
+        raise AssertionError(f"blocked materialize: total {res.count} != "
+                             f"oracle {pairs.shape[0]}")
+    pad = np.zeros(RING - pairs.shape[0], np.int32)
+    if not np.array_equal(
+            _pair_multiset(*(x.cpu().numpy() for x in res.pairs)),
+            _pair_multiset(np.concatenate([pairs[:, 0], pad]),
+                           np.concatenate([pairs[:, 1], pad]))):
+        raise AssertionError("blocked materialize: pairs != oracle multiset")
+    del res, pairs
+    rs = np.random.RandomState(SEED + 4)
+    r_cols = rs.randint(-2**31, 2**31, (rk.size, 4), dtype=np.int64).astype(np.int32)
+    s_cols = rs.randint(-2**31, 2**31, (sk.size, 2), dtype=np.int64).astype(np.int32)
+    r_ids = Relation.from_numpy(rk, device=DEVICE)   # payloads: row ids
+    s_ids = Relation.from_numpy(sk, device=DEVICE)
+    rc, sc = (torch.from_numpy(c).to(DEVICE) for c in (r_cols, s_cols))
+    t_late, late = _best_s(
+        lambda: blocked.late_aggregate(r_ids, s_ids, rc, sc).aggregate)
+    ids_r, ids_s = (np.arange(n, dtype=np.int32) for n in CONFIG1)
+    want_late = oracle.join_late_materialize_sum(rk, ids_r, sk, ids_s,
+                                                 r_cols, s_cols)
+    if late != want_late:
+        raise AssertionError(f"blocked late aggregate {late} != {want_late}")
+    lines.append(f"blocked config 1 ({default_bits_for(CONFIG1[1], 256)} "
+                 f"bits): aggregate {t_agg * 1e3:.3f} ms, count = {cnt}, "
+                 f"materialize into {RING} = oracle multiset "
+                 f"{t_mat * 1e3:.3f} ms, late 4 + 2 columns = oracle "
+                 f"{t_late * 1e3:.3f} ms (best of {REPS} each)")
+    del r_ids, s_ids, rc, sc
+
+    t_ht, ht = _best_s(lambda: int(perfect_hash.global_ht_join_aggregate(
+        r.keys, r.payload, s.keys, s.payload)))
+    if ht != want:
+        raise AssertionError(f"global hash table config 1: {ht} != {want}")
+    lines.append(f"global_ht config 1 = oracle, best of {REPS} "
+                 f"{t_ht * 1e3:.3f} ms, {_overflow_rows(r)} overflow rows")
+    return launches
+
+
+def _partitioned_zipf(lines: list):
+    """"pallas" at 2^22 Zipf z=1.05, and the global hash table built on
+    the Zipf side, whose chains overflow into the banded fallback."""
+    n = 1 << (MID_SCALE - 2)
+    zk_r, zk_s = datasets.make_pk_fk(n, n, skew=1.05, seed=SEED)
+    zrng = np.random.RandomState(SEED)
+    zp_r = zrng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    zp_s = zrng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    zr, zs = _relations(zk_r, zp_r, zk_s, zp_s)
+    ranges = ClusteredJoin(EngineConfig(probe_mode="pallas"), device=DEVICE)
+    got = ranges.aggregate(zr, zs).aggregate
+    want = datagen.oracle_join_aggregate(zk_r, zp_r, zk_s, zp_s)
+    if got != want:
+        raise AssertionError(f"pallas zipf 1.05: {got} != C++ oracle {want}")
+    ht, launches = _launched(lambda: int(perfect_hash.global_ht_join_aggregate(
+        zs.keys, zs.payload, zr.keys, zr.payload)))
+    _require(launches, "global_ht overflow fallback", "banded_compare_sum")
+    want = datagen.oracle_join_aggregate(zk_s, zp_s, zk_r, zp_r)
+    n_ov = _overflow_rows(zs)
+    if ht != want or n_ov == 0:
+        raise AssertionError(f"global_ht zipf build side: {ht} != C++ oracle "
+                             f"{want}, or no overflow ({n_ov})")
+    lines.append(f"pallas 2^{MID_SCALE - 2} zipf1.05 = {got} (C++ oracle); "
+                 f"global_ht with the zipf side as build = C++ oracle, "
+                 f"{n_ov} overflow rows through the banded fallback")
+
+
+def _partitioned_config2(lines: list, big) -> tuple:
+    """"pallas" at 18 bits and "sort_merge" on the headline's 2^27
+    relations (payloads 1); returns the "pallas" launches and kernel 5's
+    time at that plan."""
+    _, _, r_keys, s_keys = big
+    ones = torch.ones_like(r_keys)
+    r, s = Relation(r_keys, ones), Relation(s_keys, ones)
+    want = _oracle_value(HEADLINE_SCALE, 0.0)
+    c2 = ClusteredJoin(EngineConfig(probe_mode="pallas").with_bits(CONFIG2_BITS),
+                       device=DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = _launched(lambda: c2.aggregate(r, s))
+    _require(launches, "pallas config 2", "probe_aggregate_ranges")
+    t_c2, agg = _best_s(lambda: c2.aggregate(r, s).aggregate)
+    peak = torch.cuda.max_memory_allocated()
+    if res.aggregate != want or agg != want:
+        raise AssertionError(f"pallas config 2: {agg} != oracle {want}")
+    cols, s_start, s_nch = _plan_of(r, s, CONFIG2_BITS, RANGE_TILE, RANGE_TILE)
+    items, compares = _range_work(cols, s_start, s_nch, RANGE_TILE, RANGE_TILE)
+    k_ms = _time_ms(lambda: probe_ranges.probe_aggregate_ranges(
+        *cols, s_start, s_nch, tile_r=RANGE_TILE, tile_s=RANGE_TILE), 10)
+    del cols
+    lines.append(f"pallas config 2, 2^{HEADLINE_SCALE} per side at "
+                 f"{CONFIG2_BITS} bits = {agg} (oracle), best of {REPS} "
+                 f"{t_c2 * 1e3:.3f} ms, peak {peak / 2**30:.2f} GiB, {items} "
+                 f"items, {compares:.3e} compares, kernel alone {k_ms:.4f} ms "
+                 f"({compares / k_ms / 1e9:.3f} T compares/s), launches "
+                 f"{launches}")
+
+    sm = ClusteredJoin(EngineConfig(probe_mode="sort_merge"), device=DEVICE)
+    t_sm, agg = _best_s(lambda: sm.aggregate(r, s).aggregate)
+    if agg != want:
+        raise AssertionError(f"sort_merge 2^{HEADLINE_SCALE}: {agg} != {want}")
+    lines.append(f"sort_merge 2^{HEADLINE_SCALE} = oracle, best of {REPS} "
+                 f"{t_sm * 1e3:.3f} ms")
+    return launches, k_ms
+
+
+def phase_partitioned(big) -> tuple:
+    """The radix-partitioned modes. Returns (the launch counts of the
+    config-2 "pallas" aggregate, kernel 5's time at config 2's plan)."""
+    lines = []
+    _partitioned_config1(lines)
+    _partitioned_zipf(lines)
+    launches, k_ms = _partitioned_config2(lines, big)
+    print("[partitioned] " + "; ".join(lines))
+    return launches, k_ms
+
+
 def phase_late():
     engine = ClusteredJoin(device=DEVICE)
     n = 1 << MID_SCALE
@@ -518,27 +781,33 @@ def main():
     kind = _timed("report", phase_report)
     _timed("build", phase_build)
     kstats = _timed("kernel", phase_kernel)
+    kstats["probe_aggregate_ranges"] = _timed("kernel ranges",
+                                              phase_kernel_ranges)
     _timed("mid", phase_mid)
     head, big = _timed("headline", phase_headline)
     fast, ring = _timed("materialize", phase_materialize, big)
+    part, c2_ms = _timed("partitioned", phase_partitioned, big)
+    kstats["probe_aggregate_ranges"]["config2_ms"] = c2_ms
     del big
     torch.cuda.empty_cache()
     _timed("late", phase_late)
     pipe = _timed("pipeline", phase_pipeline)
     # each kernel's launches on its path: the aggregate, the config-3
-    # pipeline, the config-2 ring, the 2^24 fast-path materialize
+    # pipeline, the config-2 ring, the 2^24 fast-path materialize, the
+    # config-2 "pallas" aggregate
     launches = {"banded_compare_sum": head["banded_compare_sum"],
                 "banded_compare_per_s": pipe["banded_compare_per_s"],
                 "banded_compare_first": ring["banded_compare_first"],
-                "banded_interval_select": fast["banded_interval_select"]}
+                "banded_interval_select": fast["banded_interval_select"],
+                "probe_aggregate_ranges": part["probe_aggregate_ranges"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": SOURCE,
-        "replaces": f"{PALLAS}:{KERNELS[name][3]}",
+        "source": source,
+        "replaces": replaces,
         "launches": launches[name],
         **kstats[name],
-    } for name in KERNELS]}))
+    } for name, (source, replaces) in ROUTES.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -3,12 +3,13 @@ NVIDIA H100.
 
 Same module names as the JAX package; plain functions on int32 tensors, an
 explicit device on `Relation` and `ClusteredJoin`, seeds passed to the
-generators. Imports torch and numpy, never JAX. The banded probe's compare
-kernel is CUDA C++ (`csrc/`), built with nvcc at first use.
+generators. Imports torch and numpy, never JAX. The kernels (the banded
+probe's compare/select kernels and the stream-range probe) are CUDA C++
+(`csrc/`), built with nvcc at first use.
 """
 
 from icde2019_gpu_join_tpu_torch.config import RadixConfig, EngineConfig
-from icde2019_gpu_join_tpu_torch.relation import Relation
+from icde2019_gpu_join_tpu_torch.relation import Relation, PartitionedRelation
 
 __version__ = "0.1.0"
 
@@ -16,4 +17,5 @@ __all__ = [
     "RadixConfig",
     "EngineConfig",
     "Relation",
+    "PartitionedRelation",
 ]

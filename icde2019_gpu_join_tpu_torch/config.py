@@ -1,10 +1,10 @@
 """Engine configuration: radix geometry, tile sizes, placement policy.
 
 The same knobs as the JAX package's `icde2019_gpu_join_tpu/config.py`, as
-frozen dataclasses. Only `probe_mode` ("auto" / "banded") and
-`band_window_blocks` are read by the ported path; the other fields are kept
-so a JAX engine's configuration carries across unchanged
-(`EngineConfig.from_dict(dataclasses.asdict(jax_cfg))`).
+frozen dataclasses. The engine reads `probe_mode`, `band_window_blocks`,
+`radix`, `probe_tile_r` / `probe_tile_s` and `out_capacity`; the placement,
+segment and skew-splitting fields are kept so a JAX engine's configuration
+carries across unchanged (`EngineConfig.from_dict(dataclasses.asdict(jax_cfg))`).
 
 Reference geometry (src/common.h:45-71): identity hash, partition id
 `(uint32(key) >> first_bit) & (2^bits - 1)`, default radix width 13 bits.
@@ -69,8 +69,11 @@ class EngineConfig:
     probe_tile_r: int = 256
     probe_tile_s: int = 256
     max_tiles_per_item: int = 1
-    # "auto" and "banded" run the banded sort-merge probe (ops/band_join.py);
-    # the other modes of the JAX package are not ported yet.
+    # "auto" | "banded" (the banded sort-merge probe, ops/band_join.py) |
+    # "pallas" (radix partition + the stream-range probe kernel,
+    # ops/probe_ranges.py) | "blocked" (radix partition + ops/probe.py) |
+    # "sort_merge" (ops/join_sorted.py) | "perfect" (routed as the JAX
+    # engine routes it: to the blocked probe at radix.total_bits).
     probe_mode: str = "auto"
     # Banded probe: R-blocks (x128 rows) gathered per round per S block.
     band_window_blocks: int = 1
@@ -90,6 +93,10 @@ class EngineConfig:
         if isinstance(radix, dict):
             radix = RadixConfig(**radix)
         return cls(radix=radix or RadixConfig(), **d)
+
+    def with_bits(self, total_bits: int) -> "EngineConfig":
+        return dataclasses.replace(
+            self, radix=dataclasses.replace(self.radix, total_bits=total_bits))
 
 
 def default_bits_for(n_rows: int, tile: int = 256) -> int:

@@ -1,7 +1,8 @@
 """Builds the port's native libraries at first use and loads them with ctypes.
 
 * `libtpujoin_torch_kernels.so`: every `csrc/*.cu`, compiled by `nvcc` for
-  `sm_90a` into a shared library with a plain C interface.
+  `sm_90a` (one `nvcc -c` per source, all started together) and linked into
+  a shared library with a plain C interface.
 * `libtpujoin_host.so`: the JAX package's host engine
   (`icde2019_gpu_join_tpu/datagen/native/host_engine.cpp`, read in place and
   never imported), compiled by `g++`. The same source gives the same
@@ -74,15 +75,40 @@ def kernel_sources() -> List[str]:
 
 def build_kernels() -> float:
     """Build the CUDA kernel library if it is missing or stale; returns the
-    seconds spent (0.0 when it was up to date)."""
+    seconds spent (0.0 when it was up to date). Each source compiles in its
+    own `nvcc -c`, all at once; then one link."""
     srcs = kernel_sources()
     headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     if not _is_stale(KERNEL_LIB, srcs + headers):
         return 0.0
-    return _compile(
-        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC"],
-        KERNEL_LIB, srcs)
+    nvcc = _nvcc()
+    if shutil.which(nvcc) is None:
+        raise RuntimeError(f"{nvcc} not found; cannot build {KERNEL_LIB}")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{os.getpid()}.o")
+            for src in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-Xcompiler", "-fPIC", "-c", "-o", obj, src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(srcs, objs)]
+    try:
+        for proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {KERNEL_LIB} failed:\n"
+                                   f"{' '.join(proc.args)}\n{err}")
+        _compile([nvcc, "-shared"], KERNEL_LIB, objs)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return time.perf_counter() - t0
 
 
 def build_host() -> float:

@@ -1,4 +1,5 @@
-"""Relation: a (keys, payload) pair of int32 columns on one device."""
+"""Relation containers: a (keys, payload) pair of int32 columns on one
+device, and the radix-partitioned CSR layout (`PartitionedRelation`)."""
 
 from __future__ import annotations
 
@@ -49,3 +50,49 @@ class Relation:
 
     def __repr__(self):
         return f"Relation(n={self.num_rows}, device={self.device})"
+
+
+class PartitionedRelation:
+    """CSR-partitioned relation (`ops/partition.radix_partition`).
+
+    keys/payload: int32 rows grouped by partition id (ascending).
+    counts[p]:    int32 rows in partition p, [2^total_bits].
+    offsets[p]:   int32 exclusive prefix sum of counts, [2^total_bits + 1]
+                  (offsets[-1] == num_rows).
+    total_bits/first_bit: the radix geometry that produced it."""
+
+    def __init__(self, keys: torch.Tensor, payload: torch.Tensor,
+                 counts: torch.Tensor, offsets: torch.Tensor,
+                 total_bits: int, first_bit: int):
+        self.keys = keys
+        self.payload = payload
+        self.counts = counts
+        self.offsets = offsets
+        self.total_bits = total_bits
+        self.first_bit = first_bit
+
+    @classmethod
+    def from_numpy(cls, keys, payload, counts, offsets, total_bits: int,
+                   first_bit: int, device="cpu") -> "PartitionedRelation":
+        """From host arrays, e.g. `np.asarray` of a JAX PartitionedRelation's
+        fields; every column becomes an int32 tensor on `device`."""
+        cols = (torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+                for a in (keys, payload, counts, offsets))
+        return cls(*cols, int(total_bits), int(first_bit))
+
+    @property
+    def device(self) -> torch.device:
+        return self.keys.device
+
+    @property
+    def num_rows(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def num_partitions(self) -> int:
+        return self.counts.shape[0]
+
+    def __repr__(self):
+        return (f"PartitionedRelation(n={self.num_rows}, "
+                f"parts=2^{self.total_bits}, first_bit={self.first_bit}, "
+                f"device={self.device})")

@@ -1,5 +1,6 @@
-"""NumPy oracles for the join count, aggregate, materialization, late
-materialization and the fused filter -> probe -> group-by pipeline.
+"""NumPy oracles for radix partitioning, the join count, aggregate,
+materialization, late materialization and the fused filter -> probe ->
+group-by pipeline.
 
 Ported as written from `icde2019_gpu_join_tpu/utils/oracle.py`. Semantics
 (src/join-primitives.cu:1052-1092): equi-join on int32 keys;
@@ -14,6 +15,36 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+
+def partition_ids(keys: np.ndarray, total_bits: int, first_bit: int) -> np.ndarray:
+    """Radix partition id of each key: (uint32(hasht(k)) >> first_bit) & mask."""
+    u = keys.astype(np.int64).view(np.uint64) if keys.dtype == np.int64 else keys.view(np.uint32)
+    return ((u >> np.uint32(first_bit)) & np.uint32((1 << total_bits) - 1)).astype(np.int64)
+
+
+def rotate_keys(keys: np.ndarray, total_bits: int, first_bit: int) -> np.ndarray:
+    """Bijective packing: rotr(uint32(key), first_bit+total_bits), the radix
+    field in the top bits (ops/bits.rotate_keys without the sign flip:
+    numpy compares uint32 directly)."""
+    s = (first_bit + total_bits) % 32
+    u = keys.view(np.uint32) if keys.dtype == np.int32 else keys.astype(np.uint32)
+    if s:
+        u = (u >> np.uint32(s)) | (u << np.uint32(32 - s))
+    return u
+
+
+def radix_partition(
+    keys: np.ndarray, payload: np.ndarray, total_bits: int, first_bit: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """CSR partition in the engine's canonical layout: rows ordered by the
+    rotated key (grouped by partition, key-sorted within for first_bit=0;
+    ties keep arrival order). Returns (keys', payload', counts, offsets)."""
+    p = partition_ids(keys, total_bits, first_bit)
+    order = np.argsort(rotate_keys(keys, total_bits, first_bit), kind="stable")
+    counts = np.bincount(p, minlength=1 << total_bits).astype(np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    return keys[order], payload[order], counts, offsets
 
 
 def _match_ranges(r_keys: np.ndarray, s_keys: np.ndarray):

@@ -76,8 +76,8 @@ def test_default_bits_match_jax():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ClusteredJoin(EngineConfig(probe_mode="pallas"))
+    with pytest.raises(ValueError, match="unknown probe_mode 'hash'"):
+        ClusteredJoin(EngineConfig(probe_mode="hash"))
     with pytest.raises(NotImplementedError, match="queue 1, item 10"):
         ClusteredJoin(EngineConfig(sort_impl="merge"))
 
@@ -232,6 +232,12 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch.ops.filter\n"
         "import icde2019_gpu_join_tpu_torch.models.pipelines\n"
         "import icde2019_gpu_join_tpu_torch.ops.band_compare\n"
+        "import icde2019_gpu_join_tpu_torch.ops.partition\n"
+        "import icde2019_gpu_join_tpu_torch.ops.sort\n"
+        "import icde2019_gpu_join_tpu_torch.ops.probe\n"
+        "import icde2019_gpu_join_tpu_torch.ops.probe_ranges\n"
+        "import icde2019_gpu_join_tpu_torch.ops.join_sorted\n"
+        "import icde2019_gpu_join_tpu_torch.ops.perfect_hash\n"
         "import icde2019_gpu_join_tpu_torch.ops._build\n"
         "import icde2019_gpu_join_tpu_torch.datagen\n"
         "import icde2019_gpu_join_tpu_torch.utils.datasets\n"
@@ -245,3 +251,180 @@ def test_port_never_imports_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---- the radix-partitioned modes ------------------------------------------
+
+PARTITIONED = ["pallas", "blocked", "sort_merge", "perfect"]
+
+
+def _small(mode, **kw):
+    """Small probe tiles, as tests/test_joins.py runs the JAX engine."""
+    return (EngineConfig(probe_mode=mode, probe_tile_r=64, probe_tile_s=64,
+                         **kw),
+            jconfig.EngineConfig(probe_mode=mode, probe_tile_r=64,
+                                 probe_tile_s=64, **kw))
+
+
+def _skewed_tables(rng, n_r=1000, n_s=6000):
+    rk = rng.permutation(4000)[:n_r].astype(np.int32)
+    sk = rk[np.minimum(rng.zipf(1.3, n_s) - 1, n_r - 1)].astype(np.int32)
+    rp = rng.randint(-2**31, 2**31, n_r, dtype=np.int64).astype(np.int32)
+    sp = rng.randint(-2**31, 2**31, n_s, dtype=np.int64).astype(np.int32)
+    return rk, rp, sk, sp
+
+
+def _mode_tables(rng, kind):
+    if kind == "skew":
+        return _skewed_tables(rng)
+    return make_tables(rng, n_r=2000, n_s=6000, dup_build=kind == "dup")
+
+
+def test_with_bits_matches_jax():
+    for bits in (4, 13, 18):
+        port = EngineConfig(probe_tile_s=512).with_bits(bits)
+        jax_ = jconfig.EngineConfig(probe_tile_s=512).with_bits(bits)
+        assert dataclasses.asdict(port) == dataclasses.asdict(jax_)
+        assert port.radix.total_bits == bits
+
+
+@pytest.mark.parametrize("mode", ["auto", "banded", *PARTITIONED])
+@pytest.mark.parametrize("n", [100, 5000, 1 << 20])
+def test_radix_bits_per_mode_match_jax(mode, n):
+    cfg, jcfg = _small(mode)
+    assert ClusteredJoin(cfg)._bits(n, 3 * n) == JaxJoin(jcfg)._bits(n, 3 * n)
+
+
+@pytest.mark.parametrize("mode", PARTITIONED)
+@pytest.mark.parametrize("kind", ["pkfk", "dup", "skew"])
+def test_partitioned_aggregate_and_count(rng, mode, kind):
+    """Every mode against the oracle; against the JAX engine where it runs
+    on the CPU (its "pallas" aggregate runs the Pallas kernel, which needs
+    interpret mode there: tests/test_torch_probe_ranges.py holds the kernel
+    against it)."""
+    rk, rp, sk, sp = _mode_tables(rng, kind)
+    (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
+    cfg, jcfg = _small(mode)
+    got = ClusteredJoin(cfg).aggregate(tr, ts)
+    assert got.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
+    if mode != "pallas":
+        assert got.aggregate == JaxJoin(jcfg).aggregate(jr, js).aggregate
+    cnt = ClusteredJoin(cfg).count(tr, ts).count
+    assert cnt == JaxJoin(jcfg).count(jr, js).count == toracle.join_count(rk, sk)
+
+
+@pytest.mark.parametrize("mode", PARTITIONED)
+def test_partitioned_materialize_matches_jax(rng, mode):
+    rk, _, sk, _ = make_tables(rng, n_r=1500, n_s=4000, dup_build=True)
+    rp = rng.randint(1, 1000, rk.size).astype(np.int32)
+    sp = rng.randint(1, 1000, sk.size).astype(np.int32)
+    (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
+    cfg, jcfg = _small(mode)
+    total = toracle.join_count(rk, sk)
+    res = ClusteredJoin(cfg).materialize(tr, ts, capacity=total + 50)
+    want = JaxJoin(jcfg).materialize(jr, js, capacity=total + 50)
+    assert res.count == want.count == total
+    assert res.pairs[0].shape == (total + 50,)
+
+    def multiset(out_r, out_s):
+        pairs = np.stack([np.asarray(out_r), np.asarray(out_s)], axis=1)
+        return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+
+    got = multiset(*res.pairs)
+    np.testing.assert_array_equal(got, multiset(*want.pairs))
+    np.testing.assert_array_equal(
+        got[50:], toracle.join_materialize(rk, rp, sk, sp))   # 50 zero slots
+
+
+def test_blocked_materialize_ring_wraps_like_jax(rng):
+    """A ring smaller than the match count, key-derived payloads (the order
+    of duplicate keys cannot matter), a capacity above every JAX scan
+    step's matches: slot for slot equal to the JAX engine."""
+    rk, _, sk, _ = make_tables(rng, n_r=3000, n_s=9000, dup_build=True)
+    rp = (7 * rk.astype(np.int64) + 1).astype(np.int32)
+    sp = sk ^ np.int32(0x5BD1E995)
+    (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
+    cfg, jcfg = _small("blocked")
+    total = toracle.join_count(rk, sk)
+    res = ClusteredJoin(cfg).materialize(tr, ts, capacity=2800)
+    want = JaxJoin(jcfg).materialize(jr, js, capacity=2800)
+    assert res.count == want.count == total > 2 * 2800
+    for g, w in zip(res.pairs, want.pairs):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("mode", PARTITIONED)
+def test_partitioned_late_aggregate_matches_jax(rng, mode):
+    rk, _, sk, _ = make_tables(rng, n_r=1500, n_s=4000, dup_build=True)
+    r_cols = rng.randint(-2**31, 2**31, (rk.size, 4), dtype=np.int64).astype(np.int32)
+    s_cols = rng.randint(-2**31, 2**31, (sk.size, 2), dtype=np.int64).astype(np.int32)
+    r_ids = np.arange(rk.size, dtype=np.int32)
+    s_ids = rng.permutation(sk.size).astype(np.int32)
+    cfg, jcfg = _small(mode)
+    got = ClusteredJoin(cfg).late_aggregate(
+        Relation.from_numpy(rk), Relation.from_numpy(sk, s_ids),
+        torch.from_numpy(r_cols), torch.from_numpy(s_cols))
+    want = JaxJoin(jcfg).late_aggregate(
+        JaxRelation(jnp.asarray(rk), jnp.asarray(r_ids)),
+        JaxRelation(jnp.asarray(sk), jnp.asarray(s_ids)),
+        jnp.asarray(r_cols), jnp.asarray(s_cols))
+    assert got.aggregate == want.aggregate == toracle.join_late_materialize_sum(
+        rk, r_ids, sk, s_ids, r_cols, s_cols)
+
+
+def test_pallas_mode_routes_to_the_range_probe(rng, monkeypatch):
+    """probe_mode "pallas": partition at radix.total_bits, tiles of at least
+    1024 rows, the stream-range probe for the aggregate and the blocked
+    probe for the rest, as the JAX engine routes them."""
+    from icde2019_gpu_join_tpu_torch.ops import probe as tprobe
+    from icde2019_gpu_join_tpu_torch.ops import probe_ranges
+    calls = []
+    real = probe_ranges.probe_aggregate_ranges
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(probe_ranges, "probe_aggregate_ranges", spy)
+    rk, rp, sk, sp = make_tables(rng, n_r=3000, n_s=9000)
+    tr, ts = Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)
+    engine = ClusteredJoin(EngineConfig(probe_mode="pallas", probe_tile_s=2048)
+                           .with_bits(7))
+    res = engine.aggregate(tr, ts)
+    assert res.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
+    assert calls == [{"tile_r": 1024, "tile_s": 2048}]
+    assert [p.name for p in res.timer.phases] == ["partition", "plan", "join"]
+    monkeypatch.setattr(tprobe, "blocked_probe_count",
+                        lambda *a, **k: torch.tensor(-5, dtype=torch.int32))
+    assert engine.count(tr, ts).count == -5    # JAX's int(c), signed
+
+
+def test_perfect_mode_takes_the_blocked_probe(rng, monkeypatch):
+    """The JAX engine never routes "perfect" to ops/perfect_hash.py: it
+    falls through to the blocked probe at radix.total_bits bits."""
+    from icde2019_gpu_join_tpu_torch.ops import probe as tprobe
+    seen = []
+    real = tprobe.blocked_probe_aggregate
+
+    def spy(*args, **kw):
+        seen.append(args[0].shape[0])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tprobe, "blocked_probe_aggregate", spy)
+    rk, rp, sk, sp = make_tables(rng, n_r=1000, n_s=3000)
+    tr, ts = Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)
+    res = ClusteredJoin(EngineConfig(probe_mode="perfect").with_bits(5)
+                        ).aggregate(tr, ts)
+    assert res.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
+    assert seen == [1000]
+
+
+def test_partitioned_modes_with_an_empty_side(rng):
+    rk = rng.permutation(500).astype(np.int32)
+    empty = np.zeros(0, np.int32)
+    for mode in PARTITIONED:
+        engine = ClusteredJoin(_small(mode)[0])
+        for r, s in ((rk, empty), (empty, rk)):
+            tr, ts = Relation.from_numpy(r), Relation.from_numpy(s)
+            assert engine.aggregate(tr, ts).aggregate == 0
+            assert engine.count(tr, ts).count == 0
