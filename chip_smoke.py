@@ -16,11 +16,36 @@ its seconds:
              per R tile, tiles with no chunks, a skewed tile with hundreds of
              chunks, chunk counts past S, full-range payloads) and at
              config 1's full plan, with both times there;
+  kernel merge  the merge sort's two kernels (6: `merge_levels_vmem`, 7: the
+             kernel step of `merge_level_hbm`) against their plain versions,
+             keys and payloads exactly equal: small shapes (duplicate-heavy
+             and full-range keys, several blocks so odd run parities occur,
+             two pairs so an odd pair's encoded output occurs, the short
+             second-to-last tile of a pair) and the shapes the 2^27 cascade
+             gives them, which the phase walks level by level: base runs,
+             kernel 6 at run 4096 and 2 levels, then 13 merge-path levels,
+             each with its planner's and its kernel's time, the first (runs
+             of 2^14) and the last (2^26) held against the plain version and
+             timed beside it; then the whole `merge_sort_pairs` and
+             `packed_sort_pairs` at 2^27 against `torch.sort` (keys equal,
+             (key, payload) multiset equal; packed element for element),
+             with their times and `torch.sort` + gather beside them;
   mid        `ClusteredJoin.aggregate` at 2^24 x 2^24 uniform PK-FK (against
              the checked-in oracle value) and 2^22 x 2^22 Zipf z=1.05
              (against the C++ oracle);
   headline   the aggregate at 2^27 x 2^27 uniform PK-FK with payloads of 1,
              the `bench.py` workload: best of 3 after a warm-up;
+  sorts      `EngineConfig.sort_impl`: the headline relations with every key
+             plus 1 on both sides (the same join and oracle value, no sort
+             value a masking sentinel) under "merge" and "packed", best of 3
+             with peak memory; under "merge" each call must launch kernel 6
+             twice and kernel 7 26 times and take the cascade twice; the
+             unshifted relations under "merge" must launch neither and fall
+             back twice (key 0 sorts as a sentinel), as the reference does;
+             then config 1 with keys plus 1 under "merge": `probe_mode=
+             "pallas"` (the cascade feeding the partitions and kernel 5),
+             banded materialize into 2^24 and late aggregate; and config 3 at
+             2^24 x 2^26 under "packed";
   materialize  `ClusteredJoin.materialize` (a) at 2^24 x 2^24 PK-FK into a
              2^24 buffer, which must take the block-windowed fast path and
              equal the numpy oracle as a multiset, and (b) the config-2 leg,
@@ -45,10 +70,17 @@ its seconds:
              device memory; and the general numpy oracle at 2^20
              duplicate-key R x 2^23 S.
 
-The headline, materialize, partitioned, late and pipeline phases each zero
-the kernels' launch counts just before they drive their path, read them just
-after, and fail if a kernel of the path did not launch. Then one JSON line
-on the kernels, and last the result line `{"ok": true, "device": {...}}`.
+The headline, sorts, materialize, partitioned, late and pipeline phases each
+zero the kernels' launch counts just before they drive their path, read them
+just after, and fail if a kernel of the path did not launch. Then one JSON
+line on the kernels: each with its launches on its path, its time and its
+plain version's at the path's shape, and its bound there, the larger of the
+bytes it must move (each input read once, each output written once) over
+3.35 TB/s and the integer operations its function needs over the card's
+integer rate (SMs x 64 int32 lanes x the SM clock `nvidia-smi` reports;
+`KERNEL_OPS` says what is counted). No single PyTorch call computes any of
+these functions, so `library_ms` is null; the whole merge sort has
+`torch.sort` + gather beside it in the kernel merge phase. Last the result line `{"ok": true, "device": {...}}`.
 Any failure raises, so the exit code is not 0 and no result line is
 printed; that includes a machine without CUDA.
 """
@@ -67,7 +99,7 @@ from icde2019_gpu_join_tpu_torch import datagen
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
 from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
-                                             perfect_hash, probe_ranges)
+                                             merge, perfect_hash, probe_ranges)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.relation import Relation
@@ -87,8 +119,12 @@ C3_GENERAL = (1 << 20, 1 << 23)   # (R, S) rows for the general numpy oracle
 CONFIG1 = (1 << 20, 1 << 24)      # BASELINE.json config 1, pkfk_1Mx16M
 RANGE_TILE = 1024                 # probe_mode "pallas": max(1024, probe_tile_*)
 CONFIG2_BITS = 18                 # default_bits_for(2^27, 1024)
+C3_PACKED = (1 << 24, 1 << 26)    # (R, S) rows of config 3 under "packed"
+SORT_SCALE = 27                   # log2 rows of the merge phase's sorts
 BANDED_PALLAS = "icde2019_gpu_join_tpu/ops/band_compare_pallas.py"
 BANDED_SOURCE = "icde2019_gpu_join_tpu_torch/csrc/band_compare.cu"
+MERGE_PALLAS = "icde2019_gpu_join_tpu/ops/merge_pallas.py"
+MERGE_SOURCE = "icde2019_gpu_join_tpu_torch/csrc/merge.cu"
 # kernel: (its CUDA source, the TPU kernel it replaces)
 ROUTES = {
     "banded_compare_sum": (BANDED_SOURCE, f"{BANDED_PALLAS}:44"),
@@ -98,7 +134,21 @@ ROUTES = {
     "probe_aggregate_ranges": (
         "icde2019_gpu_join_tpu_torch/csrc/probe_ranges.cu",
         "icde2019_gpu_join_tpu/ops/probe_pallas.py:76"),
+    "merge_levels_vmem": (MERGE_SOURCE, f"{MERGE_PALLAS}:182"),
+    "merge_level_hbm": (MERGE_SOURCE, f"{MERGE_PALLAS}:313"),
 }
+# The integer operations each kernel's function needs per unit of work, for
+# its bound: per compared (S row, R column) pair a compare and one
+# predicated add (kernels 1 and 5), two adds (2), an add and a min (3), two
+# compares and three adds (4); per compare-exchange of the merge kernels a
+# compare and four selects.
+KERNEL_OPS = {"banded_compare_sum": 2, "banded_compare_per_s": 3,
+              "banded_compare_first": 3, "banded_interval_select": 5,
+              "probe_aggregate_ranges": 2, "merge_levels_vmem": 5,
+              "merge_level_hbm": 5}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+INT32_LANES_PER_SM = 64
+CARD = {}                   # "int_ops_per_s", set by phase_report
 
 
 def _oracle_value(scale: int, skew: float) -> int:
@@ -137,11 +187,26 @@ def _best_s(fn, reps: int = REPS):
 def _launched(fn):
     """Zero the launch counts, run fn once (synchronised), and return
     (fn's result, the launch counts of that run, every kernel)."""
-    band_compare.reset_launches()
-    probe_ranges.reset_launches()
+    for module in (band_compare, probe_ranges, merge):
+        module.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, {**band_compare.LAUNCHES, **probe_ranges.LAUNCHES}
+    return out, {**band_compare.LAUNCHES, **probe_ranges.LAUNCHES,
+                 **merge.LAUNCHES}
+
+
+def _bound(nbytes: int, int_ops: int) -> dict:
+    """The least time the card could take: the bytes over the memory rate or
+    the integer operations over the integer rate, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = int_ops / CARD["int_ops_per_s"] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _require(counts: dict, path: str, *names):
@@ -245,9 +310,18 @@ def phase_report() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["int_ops_per_s"] = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
     kind = torch.cuda.get_device_name(0)
     print(f"[report] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {kind} count {torch.cuda.device_count()}")
+          f"device {kind} count {torch.cuda.device_count()}; {sms} SMs x "
+          f"{INT32_LANES_PER_SM} int32 lanes x {sm_mhz:.0f} MHz = "
+          f"{CARD['int_ops_per_s']:.3e} integer operations/s")
     print(smi)
     return kind
 
@@ -260,6 +334,8 @@ def phase_build():
     for name in KERNELS:
         band_compare._kernel(name)  # loads the library and binds the symbol
     probe_ranges._kernel()
+    for name in ("merge_levels", "merge_level_hbm"):
+        merge._kernel(name)
     if datagen.native_lib() is None:
         raise RuntimeError("native host library did not load")
     print(f"[build] kernels {t_kernels:.2f}s ({_build.KERNEL_LIB}) "
@@ -286,10 +362,16 @@ def phase_kernel() -> dict:
         args = make(gen, ch, w * band_compare.LANES)
         ms = _time_ms(lambda: wrapper(*args), 20)
         plain_ms = _time_ms(lambda: plain(*args), 3)
-        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        out = wrapper(*args)
+        bound = _bound(
+            _nbytes(*args, *(out if isinstance(out, tuple) else (out,))),
+            ch * band_compare.LANES * w * band_compare.LANES * KERNEL_OPS[name])
+        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **bound}
         print(f"[kernel] {name}: equal to plain at (CH, W) in "
               f"{SMALL_SHAPES + main}; at {main[0]}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"by {bound['bound_by']}")
     return stats
 
 
@@ -373,11 +455,190 @@ def phase_kernel_ranges() -> dict:
     plain_ms = _time_ms(lambda: probe_ranges.probe_aggregate_ranges_ref(
         *args, tile_r=tr, tile_s=ts), 3)
     items, compares = _range_work(*cases[-1][0], tr, ts)
+    # the four columns read once, and the scalar written
+    bound = _bound(_nbytes(*cols) + 4,
+                   compares * KERNEL_OPS["probe_aggregate_ranges"])
     print(f"[kernel] probe_aggregate_ranges: equal to plain at {shapes}; at "
           f"config 1's plan ({items} items, {compares:.3e} compares): kernel "
           f"{ms:.4f} ms ({compares / ms / 1e9:.3f} T compares/s), plain "
-          f"{plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+# ---- kernels 6 and 7: the merge sort ----------------------------------------
+
+def _sort_inputs(gen, n: int, lo: int, hi: int):
+    """Keys in [lo, hi) (callers keep the masking sentinels out) and
+    full-range payloads."""
+    return _ints(gen, lo, hi, (n,)), _full(gen, (n,))
+
+
+def _encoded_runs(sv, pv, run: int):
+    """(sv, pv) as sorted runs of `run` in the cascade's layout: run r
+    ascending by its stored value, stored = actual ^ -(r & 1)."""
+    mask = merge._run_parity_mask(sv.shape[0], run, sv.device)
+    s2, idx = torch.sort(sv.view(-1, run) ^ mask, dim=1)
+    return s2.view(-1), torch.gather(pv.view(-1, run), 1, idx).view(-1)
+
+
+def _same_pairs(got, want, what: str) -> int:
+    """Keys and payloads exactly equal, or an AssertionError."""
+    err = _max_err(got, want)
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"{what}: kernel != plain (max abs err {err})")
+    return err
+
+
+def _packed_words(sv, pv):
+    return (sv.long() << 32) | (pv.long() & 0xFFFFFFFF)
+
+
+def _check_sorted_pairs(got, sv, pv, what: str):
+    """got holds sv ascending and the same (key, payload) multiset."""
+    if not torch.equal(got[0], torch.sort(sv).values):
+        raise AssertionError(f"{what}: keys != torch.sort")
+    if not torch.equal(torch.sort(_packed_words(*got)).values,
+                       torch.sort(_packed_words(sv, pv)).values):
+        raise AssertionError(f"{what}: (key, payload) multiset changed")
+
+
+def _wall_ms(fn) -> float:
+    """Wall time of one synchronised call (for host-bound steps)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+LEVEL_SHAPES = [   # kernel 6: (n, run_len, levels, key lo, key hi)
+    (1 << 16, 256, 3, 0, 64),                   # duplicate-heavy
+    (1 << 16, 128, 1, -2**31 + 1, 2**31 - 1),   # full range, 256-pair blocks
+    (1 << 17, 4096, 2, -2**31 + 1, 2**31 - 1),  # 8 blocks: odd parities
+    (1 << 15, 512, 5, 0, 64),                   # five levels in one block
+]
+TILE_SHAPES = [    # kernel 7: (n, run_len, window, key lo, key hi)
+    (1 << 16, 1 << 14, 8192, 0, 64),   # two pairs, five tiles each, the
+    (1 << 16, 1 << 14, 8192, -2**31 + 1, 2**31 - 1),   # fourth 512 rows
+    (1 << 17, 1 << 13, 8192, -1000, 1000),      # run_len == window
+    (1 << 15, 1 << 12, 1024, 0, 64),            # a smaller window
+]
+
+
+def phase_kernel_merge() -> dict:
+    """Kernels 6 and 7 against their plain versions, then the 2^27 cascade
+    level by level, then the whole sorts. Returns the two kernels' stats."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 6)
+    for n, run, levels, lo, hi in LEVEL_SHAPES:
+        es, ep = _encoded_runs(*_sort_inputs(gen, n, lo, hi), run)
+        _same_pairs(merge.merge_levels_vmem(es, ep, run, levels),
+                    merge.merge_levels_vmem_ref(es, ep, run, levels),
+                    f"merge_levels_vmem at {(n, run, levels)}")
+    for n, run, window, lo, hi in TILE_SHAPES:
+        es, ep = _encoded_runs(*_sort_inputs(gen, n, lo, hi), run)
+        meta = merge.merge_level_meta(es, run, window)
+        valid = (meta[3] - meta[2]) + (meta[5] - meta[4])
+        if run == 1 << 14 and int(valid.min()) != 512:
+            raise AssertionError(f"no short tile at {(n, run, window)}")
+        _same_pairs(merge.merge_tiles(es, ep, meta, window),
+                    merge.merge_tiles_ref(es, ep, meta, window),
+                    f"merge_level_hbm at {(n, run, window)}")
+    print(f"[kernel merge] merge_levels_vmem equal to plain at (n, run, "
+          f"levels) in {[c[:3] for c in LEVEL_SHAPES]}; merge_level_hbm at "
+          f"(n, run, window) in {[c[:3] for c in TILE_SHAPES]}, the short "
+          f"second-to-last tile included")
+
+    # the cascade at 2^27, level by level
+    n = 1 << SORT_SCALE
+    sv, pv = _sort_inputs(gen, n, -2**31 + 1, 2**31 - 1)
+    base_ms = _time_ms(lambda: merge.encode_base_runs(sv, pv), 3)
+    es, ep = merge.encode_base_runs(sv, pv)
+    run, levels = merge.BASE_RUN, 2
+    k6 = lambda: merge.merge_levels_vmem(es, ep, run, levels)
+    k6_plain = lambda: merge.merge_levels_vmem_ref(es, ep, run, levels)
+    stats = {"merge_levels_vmem": {
+        "max_abs_err": _same_pairs(k6(), k6_plain(),
+                                   f"merge_levels_vmem at 2^{SORT_SCALE}"),
+        "ms": _time_ms(k6, 10), "plain_ms": _time_ms(k6_plain, 1),
+        # 13 + 14 stages of n / 2 exchanges
+        **_bound(16 * n, 27 * (n // 2) * KERNEL_OPS["merge_levels_vmem"])}}
+    cur = k6()
+    del es, ep
+    run <<= levels
+    plan_ms, tile_ms, shown = [], [], {}
+    while run < n:
+        meta = merge.merge_level_meta(cur[0], run)
+        plan_ms.append(_wall_ms(lambda: merge.merge_level_meta(cur[0], run)))
+        k7 = lambda: merge.merge_tiles(*cur, meta)
+        tile_ms.append(_time_ms(k7, 3))
+        if run in (1 << 14, n // 2):      # the first, widest level; the last
+            k7_plain = lambda: merge.merge_tiles_ref(*cur, meta)
+            err = _same_pairs(k7(), k7_plain(),
+                              f"merge_level_hbm at 2^{SORT_SCALE}, run {run}")
+            ntiles, w = meta.shape[1], merge.HBM_WINDOW
+            stages = (2 * w).bit_length() - 1
+            shown[run] = {
+                "max_abs_err": err, "ms": tile_ms[-1],
+                "plain_ms": _time_ms(k7_plain, 1), "ntiles": ntiles,
+                # the function's work: the n valid rows through the
+                # log2(2 * window) stages, n / 2 exchanges each. The
+                # kernel's networks also carry masked junk and each pair's
+                # re-covering tile: `network_exchanges`, not in the bound
+                "network_exchanges": ntiles * stages * w,
+                **_bound(16 * n + _nbytes(meta),
+                         stages * (n // 2) * KERNEL_OPS["merge_level_hbm"])}
+        cur = k7()
+        run <<= 1
+    _check_sorted_pairs(cur, sv, pv, "the cascade, level by level")
+    del cur, meta
+    first, last = shown[1 << 14], shown[n // 2]
+    # the row's required keys are the first level's (run 2^14); the last
+    # level's and the sums over all levels of one sort stand beside them
+    stats["merge_level_hbm"] = {
+        **first,
+        "max_abs_err": max(first["max_abs_err"], last["max_abs_err"]),
+        "last_level": last, "levels": len(tile_ms),
+        "levels_ms": sum(tile_ms), "levels_planner_wall_ms": sum(plan_ms)}
+    k6s = stats["merge_levels_vmem"]
+    print(f"[kernel merge] 2^{SORT_SCALE} cascade: base runs {base_ms:.3f} "
+          f"ms; merge_levels_vmem (run 4096, 2 levels) {k6s['ms']:.4f} ms, "
+          f"plain {k6s['plain_ms']:.3f} ms, bound {k6s['bound_ms']:.4f} ms by "
+          f"{k6s['bound_by']}; merge_level_hbm at run 2^14 ({first['ntiles']} "
+          f"tiles) {first['ms']:.4f} ms, plain {first['plain_ms']:.3f} ms, "
+          f"bound {first['bound_ms']:.4f} ms by {first['bound_by']}; at run "
+          f"2^{SORT_SCALE - 1} ({last['ntiles']} tiles) {last['ms']:.4f} ms, "
+          f"plain {last['plain_ms']:.3f} ms, bound {last['bound_ms']:.4f} ms "
+          f"by {last['bound_by']}; all equal to plain; {len(tile_ms)} levels: kernel "
+          f"{sum(tile_ms):.3f} ms ({', '.join(f'{t:.3f}' for t in tile_ms)}), "
+          f"planner {sum(plan_ms):.3f} ms wall "
+          f"({', '.join(f'{t:.3f}' for t in plan_ms)})")
+
+    # the whole sorts
+    merge.reset_launches()
+    got = merge.merge_sort_pairs(sv, pv)
+    _check_sorted_pairs(got, sv, pv, "merge_sort_pairs")
+    if merge.ROUTES != {"cascade": 1, "fallback": 0}:
+        raise AssertionError(f"merge_sort_pairs took {merge.ROUTES}")
+    got = merge.packed_sort_pairs(sv, pv)
+    # element for element: payloads ascending as uint32 within a key, by
+    # two stable sorts
+    order = torch.sort(pv.long() & 0xFFFFFFFF, stable=True).indices
+    order = order[torch.sort(sv[order], stable=True).indices]
+    if not (torch.equal(got[0], sv[order]) and torch.equal(got[1], pv[order])):
+        raise AssertionError("packed_sort_pairs != the two-key stable sort")
+    del got, order
+    library = lambda: band_join.sort_pairs(sv, pv, "lax")
+    times = {name: min(_wall_ms(fn) for _ in range(REPS)) for name, fn in (
+        ("merge", lambda: merge.merge_sort_pairs(sv, pv)),
+        ("packed", lambda: merge.packed_sort_pairs(sv, pv)),
+        ("torch.sort + gather", library))}
+    print(f"[kernel merge] 2^{SORT_SCALE} pairs, best of {REPS}, wall: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + "; merge and packed hold torch.sort's keys and the same pairs")
+    return stats
 
 
 def _relations(rk, rp, sk, sp):
@@ -450,6 +711,127 @@ def phase_headline():
           f"rounds {rounds}; launches per join {launches}; "
           f"data {t_data:.1f}s")
     return launches, (rk, sk, r.keys, s.keys)
+
+
+def _sort_engine(impl: str, **kw) -> ClusteredJoin:
+    return ClusteredJoin(EngineConfig(sort_impl=impl, **kw), device=DEVICE)
+
+
+def _expect_cascade(launches: dict, path: str, levels_launches: int,
+                    tile_launches: int, sorts: int):
+    got = (launches["merge_levels_vmem"], launches["merge_level_hbm"],
+           dict(merge.ROUTES))
+    want = (levels_launches, tile_launches,
+            {"cascade": sorts if levels_launches else 0,
+             "fallback": 0 if levels_launches else sorts})
+    if got != want:
+        raise AssertionError(f"{path}: launches and routes {got} != {want}")
+
+
+def phase_sorts(big) -> dict:
+    """`sort_impl` "merge" and "packed" through the engine. Returns the
+    launch counts of one 2^27 aggregate under "merge"."""
+    _, _, r_keys, s_keys = big
+    n = r_keys.shape[0]
+    ones = torch.ones_like(r_keys)
+    want = _oracle_value(HEADLINE_SCALE, 0.0)
+    # every key plus 1: the same join, and no sort value is a sentinel
+    r, s = Relation(r_keys + 1, ones), Relation(s_keys + 1, ones)
+    lines = []
+    for impl in ("merge", "packed"):
+        engine = _sort_engine(impl)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches = _launched(lambda: engine.aggregate(r, s))
+        if impl == "merge":
+            # two sorts: kernel 6 once, kernel 7 on 13 levels each
+            _expect_cascade(launches, "2^27 merge", 2, 26, 2)
+            head, routes = launches, dict(merge.ROUTES)
+        _require(launches, f"2^27 {impl}", "banded_compare_sum")
+        best, agg = _best_s(lambda: engine.aggregate(r, s).aggregate)
+        peak = torch.cuda.max_memory_allocated()
+        if res.aggregate != want or agg != want:
+            raise AssertionError(f"2^27 {impl}: {agg} != oracle {want}")
+        lines.append(f"2^{HEADLINE_SCALE} per side, keys + 1, {impl!r} = "
+                     f"oracle, best of {REPS} {best * 1e3:.3f} ms "
+                     f"({2 * n / best / 1e6:.1f} Mrows/s), peak "
+                     f"{peak / 2**30:.2f} GiB")
+    lines[0] += f", launches per call {head}, routes {routes}"
+    del r, s
+    r, s = Relation(r_keys, ones), Relation(s_keys, ones)
+    res, launches = _launched(lambda: _sort_engine("merge").aggregate(r, s))
+    _expect_cascade(launches, "2^27 merge, key 0 present", 0, 0, 2)
+    if res.aggregate != want:
+        raise AssertionError(f"2^27 merge fallback: {res.aggregate} != {want}")
+    lines.append(f"unshifted under 'merge' = oracle, no merge launches, "
+                 f"routes {merge.ROUTES} (key 0 sorts as a sentinel)")
+    del r, s, ones
+
+    # config 1, keys plus 1, under "merge"
+    rk, rp, sk, sp = _config1_tables()
+    rk, sk = rk + 1, sk + 1
+    r, s = _relations(rk, rp, sk, sp)
+    want1 = datagen.oracle_join_aggregate(rk, rp, sk, sp)
+    ranges = _sort_engine("merge", probe_mode="pallas")
+    res, launches = _launched(lambda: ranges.aggregate(r, s))
+    # partitions of 2^20 and 2^24 rows: 6 + 10 merge-path levels
+    _expect_cascade(launches, "pallas config 1 merge", 2, 16, 2)
+    _require(launches, "pallas config 1 merge", "probe_aggregate_ranges")
+    t_c1, agg = _best_s(lambda: ranges.aggregate(r, s).aggregate)
+    if res.aggregate != want1 or agg != want1:
+        raise AssertionError(f"pallas config 1 merge: {agg} != {want1}")
+    banded = _sort_engine("merge")
+    res, launches = _launched(lambda: banded.materialize(r, s, capacity=RING))
+    _expect_cascade(launches, "materialize config 1 merge", 2, 16, 2)
+    t_mat, res = _best_s(lambda: banded.materialize(r, s, capacity=RING))
+    pairs = oracle.join_materialize(rk, rp, sk, sp)
+    pad = np.zeros(RING - pairs.shape[0], np.int32)
+    if res.count != pairs.shape[0] or not np.array_equal(
+            _pair_multiset(*(x.cpu().numpy() for x in res.pairs)),
+            _pair_multiset(np.concatenate([pairs[:, 0], pad]),
+                           np.concatenate([pairs[:, 1], pad]))):
+        raise AssertionError("materialize config 1 merge != oracle multiset")
+    del res, pairs
+    rs = np.random.RandomState(SEED + 4)
+    r_cols = rs.randint(-2**31, 2**31, (rk.size, 4), dtype=np.int64).astype(np.int32)
+    s_cols = rs.randint(-2**31, 2**31, (sk.size, 2), dtype=np.int64).astype(np.int32)
+    r_ids = Relation.from_numpy(rk, device=DEVICE)   # payloads: row ids
+    s_ids = Relation.from_numpy(sk, device=DEVICE)
+    rc, sc = (torch.from_numpy(c).to(DEVICE) for c in (r_cols, s_cols))
+    late, launches = _launched(
+        lambda: banded.late_aggregate(r_ids, s_ids, rc, sc).aggregate)
+    _expect_cascade(launches, "late config 1 merge", 2, 16, 2)
+    t_late, late = _best_s(
+        lambda: banded.late_aggregate(r_ids, s_ids, rc, sc).aggregate)
+    ids_r, ids_s = (np.arange(m, dtype=np.int32) for m in CONFIG1)
+    want_late = oracle.join_late_materialize_sum(rk, ids_r, sk, ids_s,
+                                                 r_cols, s_cols)
+    if late != want_late:
+        raise AssertionError(f"late config 1 merge {late} != {want_late}")
+    lines.append(f"config 1, keys + 1, 'merge' (2 + 16 merge launches each): "
+                 f"'pallas' = C++ oracle {t_c1 * 1e3:.3f} ms, materialize "
+                 f"into {RING} = oracle multiset {t_mat * 1e3:.3f} ms, late "
+                 f"4 + 2 columns = oracle {t_late * 1e3:.3f} ms (best of "
+                 f"{REPS} each)")
+    del r, s, r_ids, s_ids, rc, sc
+
+    # config 3 under "packed"
+    c = C3
+    inputs = datasets.make_config3(*C3_PACKED, c["groups"])
+    want3 = _direct_config3_oracle(*inputs, c["lo"], c["hi"], c["groups"])
+    args = [torch.from_numpy(a).to(DEVICE) for a in inputs]
+    packed = lambda: pipelines.filter_probe_groupby(
+        *args, c["lo"], c["hi"], c["groups"], sort_impl="packed")
+    got, launches = _launched(packed)
+    _require(launches, "config 3 packed", "banded_compare_per_s")
+    t_c3, got = _best_s(packed)
+    for g, w, what in zip(got, want3, ("COUNT", "SUM")):
+        if not np.array_equal(g.cpu().numpy(), w):
+            raise AssertionError(f"config 3 packed {what} != oracle")
+    lines.append(f"config 3 at {C3_PACKED[0]} x {C3_PACKED[1]} under 'packed' "
+                 f"= direct oracle, best of {REPS} {t_c3 * 1e3:.3f} ms")
+    print("[sorts] " + "; ".join(lines))
+    return head
 
 
 def _key_payloads(r_keys, s_keys):
@@ -783,8 +1165,10 @@ def main():
     kstats = _timed("kernel", phase_kernel)
     kstats["probe_aggregate_ranges"] = _timed("kernel ranges",
                                               phase_kernel_ranges)
+    kstats.update(_timed("kernel merge", phase_kernel_merge))
     _timed("mid", phase_mid)
     head, big = _timed("headline", phase_headline)
+    sorts = _timed("sorts", phase_sorts, big)
     fast, ring = _timed("materialize", phase_materialize, big)
     part, c2_ms = _timed("partitioned", phase_partitioned, big)
     kstats["probe_aggregate_ranges"]["config2_ms"] = c2_ms
@@ -794,12 +1178,14 @@ def main():
     pipe = _timed("pipeline", phase_pipeline)
     # each kernel's launches on its path: the aggregate, the config-3
     # pipeline, the config-2 ring, the 2^24 fast-path materialize, the
-    # config-2 "pallas" aggregate
+    # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"
     launches = {"banded_compare_sum": head["banded_compare_sum"],
                 "banded_compare_per_s": pipe["banded_compare_per_s"],
                 "banded_compare_first": ring["banded_compare_first"],
                 "banded_interval_select": fast["banded_interval_select"],
-                "probe_aggregate_ranges": part["probe_aggregate_ranges"]}
+                "probe_aggregate_ranges": part["probe_aggregate_ranges"],
+                "merge_levels_vmem": sorts["merge_levels_vmem"],
+                "merge_level_hbm": sorts["merge_level_hbm"]}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -20,7 +20,10 @@ Port of `icde2019_gpu_join_tpu/models/joins.py` `ClusteredJoin`: its
     does the port.
 
 The non-banded modes partition at `radix.total_bits` unless the mode is
-"blocked". The size-based dispatcher is not ported yet.
+"blocked". Every sort of (sortval, payload) pairs, the banded modes' two and
+the partitions' two, runs under `config.sort_impl` ("lax" when unset; see
+`band_join.sort_pairs`); "sort_merge" keeps its own stable sort, as in JAX.
+The size-based dispatcher is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.ops import probe as probe_ops
 from icde2019_gpu_join_tpu_torch.ops import probe_ranges
 from icde2019_gpu_join_tpu_torch.ops.band_join import (
+    SORT_IMPLS,
     banded_join_aggregate,
     banded_join_count,
     banded_join_late_aggregate,
@@ -85,10 +89,10 @@ class ClusteredJoin:
         mode = self.config.probe_mode
         if mode not in PROBE_MODES:
             raise ValueError(f"unknown probe_mode {mode!r}")
-        if self.config.sort_impl not in (None, "lax"):
-            raise NotImplementedError(
-                f"sort_impl={self.config.sort_impl!r} is not ported yet: "
-                "ROADMAP.md queue 1, item 10")
+        # the engine's two hot sorts; there is no process-wide default
+        self.sort_impl = self.config.sort_impl or "lax"
+        if self.sort_impl not in SORT_IMPLS:
+            raise ValueError(f"unknown sort_impl {self.sort_impl!r}")
 
     def _check(self, r: Relation, s: Relation, **cols: torch.Tensor):
         for name, dev in (("r", r.device), ("s", s.device),
@@ -109,8 +113,10 @@ class ClusteredJoin:
         nrows = r.num_rows + s.num_rows
         with timer.phase("partition", bytes_moved=16 * nrows,
                          rows=nrows) as out:
-            pr = radix_partition(r.keys, r.payload, bits, first_bit)
-            ps = radix_partition(s.keys, s.payload, bits, first_bit)
+            pr = radix_partition(r.keys, r.payload, bits, first_bit,
+                                 self.sort_impl)
+            ps = radix_partition(s.keys, s.payload, bits, first_bit,
+                                 self.sort_impl)
             out["result"] = (pr.keys, ps.keys)
         return pr, ps
 
@@ -136,7 +142,8 @@ class ClusteredJoin:
             with timer.phase("join", bytes_moved=8 * nrows, rows=nrows) as out:
                 agg = banded_join_aggregate(
                     r.keys, r.payload, s.keys, s.payload,
-                    window_blocks=self.config.band_window_blocks)
+                    window_blocks=self.config.band_window_blocks,
+                    sort_impl=self.sort_impl)
                 out["result"] = agg
             return JoinResult(aggregate=int(agg), timer=timer)
         if mode == "sort_merge":
@@ -185,7 +192,8 @@ class ClusteredJoin:
         if mode in _BANDED:
             with timer.phase("join") as out:
                 c = banded_join_count(
-                    r.keys, s.keys, window_blocks=self.config.band_window_blocks)
+                    r.keys, s.keys, window_blocks=self.config.band_window_blocks,
+                    sort_impl=self.sort_impl)
                 out["result"] = c
             return JoinResult(count=int(c) & 0xFFFFFFFF, timer=timer)
         if mode == "sort_merge":
@@ -214,7 +222,8 @@ class ClusteredJoin:
             with timer.phase("join") as out:
                 out_r, out_s, total = banded_materialize(
                     r.keys, r.payload, s.keys, s.payload, capacity=capacity,
-                    window_blocks=self.config.band_window_blocks)
+                    window_blocks=self.config.band_window_blocks,
+                    sort_impl=self.sort_impl)
                 out["result"] = (out_r, out_s)
             return JoinResult(count=int(total) & 0xFFFFFFFF,
                               pairs=(out_r, out_s), timer=timer)
@@ -246,7 +255,8 @@ class ClusteredJoin:
                 agg = banded_join_late_aggregate(
                     r.keys, _row_colsums(r_cols, r.payload),
                     s.keys, _row_colsums(s_cols, s.payload),
-                    window_blocks=self.config.band_window_blocks)
+                    window_blocks=self.config.band_window_blocks,
+                    sort_impl=self.sort_impl)
                 out["result"] = agg
             return JoinResult(aggregate=int(agg), timer=timer)
         pr, ps, plan, dev_plan = self._partition_and_plan(r, s, timer)

@@ -62,12 +62,12 @@ def _groupby_sums2_exact(gids: torch.Tensor, vals1: torch.Tensor,
 
 
 def _fpg_segment(r_sv, r_p, s_keys, s_filter_col, s_group_id, lo, hi,
-                 num_groups: int, window_blocks: int):
+                 num_groups: int, window_blocks: int, sort_impl: str):
     """Filter -> probe -> group-by of one probe-side segment against sorted
     R: the segment's per-group (COUNT, SUM) partials."""
     keep = (s_filter_col >= lo) & (s_filter_col < hi)
     s_sv, s_gid = sort_by_key(torch.where(keep, s_keys, _FILTERED_KEY),
-                              s_group_id)
+                              s_group_id, sort_impl)
     del keep
     h, t = banded_probe_per_s(r_sv, r_p, s_sv, window_blocks)
     # S sentinel padding rows sit at the end of the sorted order and may
@@ -77,19 +77,21 @@ def _fpg_segment(r_sv, r_p, s_keys, s_filter_col, s_group_id, lo, hi,
 
 
 def filter_probe_groupby(r_keys, r_pay, s_keys, s_filter_col, s_group_id,
-                         lo, hi, num_groups: int, window_blocks: int = 1
+                         lo, hi, num_groups: int, window_blocks: int = 1,
+                         sort_impl: str = "lax"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (per-group match COUNT, per-group SUM(r_pay)), int32 [G]
     tensors with wraparound. Non-matching / filtered-out rows contribute
-    nothing."""
-    r_sv, r_p = sort_by_key(r_keys, r_pay)
+    nothing. Both sorts run under `sort_impl`."""
+    r_sv, r_p = sort_by_key(r_keys, r_pay, sort_impl)
     return _fpg_segment(r_sv, r_p, s_keys, s_filter_col, s_group_id, lo, hi,
-                        num_groups, window_blocks)
+                        num_groups, window_blocks, sort_impl)
 
 
 def filter_probe_groupby_streamed(r_keys, r_pay, s_keys, s_filter_col,
                                   s_group_id, lo, hi, num_groups: int,
-                                  segments: int, window_blocks: int = 1
+                                  segments: int, window_blocks: int = 1,
+                                  sort_impl: str = "lax"
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """filter_probe_groupby with the probe side in `segments` equal slices,
     R sorted once: each segment's temporaries are 1/segments of the fused
@@ -98,14 +100,14 @@ def filter_probe_groupby_streamed(r_keys, r_pay, s_keys, s_filter_col,
     n = s_keys.shape[0]
     if n % segments:
         raise ValueError(f"segments={segments} must divide n_s={n}")
-    r_sv, r_p = sort_by_key(r_keys, r_pay)
+    r_sv, r_p = sort_by_key(r_keys, r_pay, sort_impl)
     seg = n // segments
     acc = torch.zeros((2, num_groups), dtype=torch.int64, device=s_keys.device)
     for i in range(segments):
         sl = slice(i * seg, (i + 1) * seg)
         cnt, sums = _fpg_segment(r_sv, r_p, s_keys[sl], s_filter_col[sl],
                                  s_group_id[sl], lo, hi, num_groups,
-                                 window_blocks)
+                                 window_blocks, sort_impl)
         acc[0] += cnt
         acc[1] += sums
     out = wrap_i32(acc)

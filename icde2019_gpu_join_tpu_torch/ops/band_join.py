@@ -37,6 +37,11 @@ from icde2019_gpu_join_tpu_torch.ops.band_compare import (
     banded_interval_select,
 )
 from icde2019_gpu_join_tpu_torch.ops.bits import rotate_keys, wrap_i32
+from icde2019_gpu_join_tpu_torch.ops.merge import (
+    merge_sort_pairs,
+    packed_sort_pairs,
+    torch_sort_pairs,
+)
 
 _BLK = 128
 
@@ -61,18 +66,33 @@ def _pad_sorted_input(keys: torch.Tensor, pay: torch.Tensor):
     return keys, pay
 
 
-def sort_pairs(sv: torch.Tensor, pay: torch.Tensor):
-    """(sortval, payload) sorted by signed int32 sortval; unstable, so the
-    payload order among equal keys is unspecified."""
-    sv_s, idx = torch.sort(sv)
-    return sv_s, pay[idx]
+SORT_IMPLS = ("lax", "merge", "packed")
 
 
-def sort_by_key(keys: torch.Tensor, pay: torch.Tensor):
+def sort_pairs(sv: torch.Tensor, pay: torch.Tensor, sort_impl: str = "lax"):
+    """The engine's hot (sortval, payload) sort: signed int32 ascending,
+    unstable. All three implementations agree on the key order and on the
+    per-key payload multiset; the payload order among equal keys is
+    unspecified.
+
+    sort_impl (`EngineConfig.sort_impl`; there is no process-wide default):
+    "lax", the config's name for the library sort, here `torch.sort` and a
+    payload gather; "merge", the merge-tree cascade of ops/merge.py; "packed",
+    one sort of (sortval << 32 | payload) words."""
+    if sort_impl == "lax":
+        return torch_sort_pairs(sv, pay)
+    if sort_impl == "merge":
+        return merge_sort_pairs(sv, pay)
+    if sort_impl == "packed":
+        return packed_sort_pairs(sv, pay)
+    raise ValueError(f"unknown sort_impl {sort_impl!r}")
+
+
+def sort_by_key(keys: torch.Tensor, pay: torch.Tensor, sort_impl: str = "lax"):
     """Sort (keys, pay) by uint32 key order; returns 128-padded tensors of
     (sortval, payload)."""
     keys, pay = _pad_sorted_input(keys, pay)
-    return sort_pairs(rotate_keys(keys, 0, 0), pay)
+    return sort_pairs(rotate_keys(keys, 0, 0), pay, sort_impl)
 
 
 def _ranks_of_sorted_probes(a: torch.Tensor, b: torch.Tensor,
@@ -378,7 +398,8 @@ def _fast_path_plan(h, fm, off, s_p, r_p, capacity: int, total: int):
 def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
                        s_keys: torch.Tensor, s_pay: torch.Tensor,
                        capacity: int, window_blocks: int = 1,
-                       wrap: bool = True, debug_force: Optional[str] = None):
+                       wrap: bool = True, debug_force: Optional[str] = None,
+                       sort_impl: str = "lax"):
     """Materialize matched (Pr, Ps) pairs into `capacity`-sized buffers.
 
     Returns (out_r, out_s, total): two int32 [capacity] tensors and the
@@ -397,8 +418,8 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
     path regardless (tests)."""
     if debug_force not in (None, "fast", "slow"):
         raise ValueError(f"unknown debug_force {debug_force!r}")
-    r_sv, r_p = sort_by_key(r_keys, r_pay)
-    s_sv, s_p = sort_by_key(s_keys, s_pay)
+    r_sv, r_p = sort_by_key(r_keys, r_pay, sort_impl)
+    s_sv, s_p = sort_by_key(s_keys, s_pay, sort_impl)
     n_s = s_keys.shape[0]
     h, fm = banded_match_descriptors(r_sv, s_sv, window_blocks)
     # drop S sentinel-padding rows (at the end of the sorted order)
@@ -425,29 +446,32 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
 
 def banded_join_aggregate(r_keys: torch.Tensor, r_pay: torch.Tensor,
                           s_keys: torch.Tensor, s_pay: torch.Tensor,
-                          window_blocks: int = 1) -> torch.Tensor:
+                          window_blocks: int = 1,
+                          sort_impl: str = "lax") -> torch.Tensor:
     """Sort both sides, then the banded probe: SUM(Pr*Ps) over key matches,
     int32 wraparound, as a 0-d int32 tensor."""
-    r_sv, r_p = sort_by_key(r_keys, r_pay)
-    s_sv, s_p = sort_by_key(s_keys, s_pay)
+    r_sv, r_p = sort_by_key(r_keys, r_pay, sort_impl)
+    s_sv, s_p = sort_by_key(s_keys, s_pay, sort_impl)
     return banded_probe(r_sv, r_p, s_sv, s_p, window_blocks, "mul")
 
 
 def banded_join_late_aggregate(r_keys: torch.Tensor, r_colsum: torch.Tensor,
                                s_keys: torch.Tensor, s_colsum: torch.Tensor,
-                               window_blocks: int = 1) -> torch.Tensor:
+                               window_blocks: int = 1,
+                               sort_impl: str = "lax") -> torch.Tensor:
     """Late-materialization aggregate: SUM over matches of (Rcolsum +
     Scolsum), int32 wraparound (join_partitioned_varpayload analog,
     src/join-primitives.cu:1420-1557). Requires keys != -1 (sentinel)."""
-    r_sv, r_c = sort_by_key(r_keys, r_colsum)
-    s_sv, s_c = sort_by_key(s_keys, s_colsum)
+    r_sv, r_c = sort_by_key(r_keys, r_colsum, sort_impl)
+    s_sv, s_c = sort_by_key(s_keys, s_colsum, sort_impl)
     return banded_probe(r_sv, r_c, s_sv, s_c, window_blocks, "add")
 
 
 def banded_join_count(r_keys: torch.Tensor, s_keys: torch.Tensor,
-                      window_blocks: int = 1) -> torch.Tensor:
+                      window_blocks: int = 1,
+                      sort_impl: str = "lax") -> torch.Tensor:
     """Match count (int32 wraparound; exact when < 2^31), computed as
     SUM(1*1) so the sentinel pad rows (payload 0) count nothing."""
     return banded_join_aggregate(r_keys, torch.ones_like(r_keys),
                                  s_keys, torch.ones_like(s_keys),
-                                 window_blocks)
+                                 window_blocks, sort_impl)

@@ -47,11 +47,13 @@ def _csr_from_sorted_sortval(sv_sorted: torch.Tensor, total_bits: int):
 
 
 def radix_partition(keys: torch.Tensor, payload: torch.Tensor,
-                    total_bits: int, first_bit: int = 0) -> PartitionedRelation:
+                    total_bits: int, first_bit: int = 0,
+                    sort_impl: str = "lax") -> PartitionedRelation:
     """Partition (keys, payload) into 2^total_bits partitions, CSR layout,
-    by one unstable (rotated key, payload) sort."""
+    by one unstable (rotated key, payload) sort; sort_impl picks its
+    implementation (`band_join.sort_pairs`)."""
     sv = rotate_keys(keys, total_bits, first_bit)
-    sv_sorted, pays_s = sort_pairs(sv, payload)
+    sv_sorted, pays_s = sort_pairs(sv, payload, sort_impl)
     keys_s = unrotate_keys(sv_sorted, total_bits, first_bit)
     counts, offsets = _csr_from_sorted_sortval(sv_sorted, total_bits)
     return PartitionedRelation(keys_s, pays_s, counts, offsets, total_bits,

@@ -132,13 +132,14 @@ def default_log_buckets(n_rows: int, chain_cap: int = 8) -> int:
 def global_ht_join_aggregate(r_keys: torch.Tensor, r_pay: torch.Tensor,
                              s_keys: torch.Tensor, s_pay: torch.Tensor,
                              log_buckets: Optional[int] = None,
-                             chain_cap: int = 8) -> torch.Tensor:
+                             chain_cap: int = 8,
+                             sort_impl: str = "lax") -> torch.Tensor:
     """Global chained-hash-table join (build_ht_chains / chains_probing
     analog, src/join-primitives.cu:681-742): SUM(Pr*Ps), int32 wraparound,
     as a 0-d int32 tensor. Build rows past a bucket's C slots are joined
     exactly by the banded engine (`banded_join_aggregate`, kernel 1) over
-    the overflow rows, only when there are any (one host read; JAX:
-    lax.cond). Bit-exact for keys >= 0 (the banded engine's key domain)."""
+    the overflow rows, sorted by `sort_impl`, only when there are any (one
+    host read; JAX: lax.cond). Bit-exact for keys >= 0 (the banded engine's key domain)."""
     if log_buckets is None:
         log_buckets = default_log_buckets(r_keys.shape[0], chain_cap)
     table_k, table_p, ov_keys, ov_pay, n_ov = global_ht_build(
@@ -146,6 +147,7 @@ def global_ht_join_aggregate(r_keys: torch.Tensor, r_pay: torch.Tensor,
     total = global_ht_probe_aggregate(table_k, table_p, s_keys, s_pay,
                                       log_buckets)
     if int(n_ov) > 0:
-        residual = banded_join_aggregate(ov_keys, ov_pay, s_keys, s_pay)
+        residual = banded_join_aggregate(ov_keys, ov_pay, s_keys, s_pay,
+                                         sort_impl=sort_impl)
         return wrap_i32(total.long() + residual.long())
     return total

@@ -78,8 +78,8 @@ def test_default_bits_match_jax():
 def test_unported_modes_raise():
     with pytest.raises(ValueError, match="unknown probe_mode 'hash'"):
         ClusteredJoin(EngineConfig(probe_mode="hash"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        ClusteredJoin(EngineConfig(sort_impl="merge"))
+    with pytest.raises(ValueError, match="unknown sort_impl 'bitonic'"):
+        ClusteredJoin(EngineConfig(sort_impl="bitonic"))
 
 
 def test_relation_device_must_match_engine():
@@ -238,6 +238,7 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch.ops.probe_ranges\n"
         "import icde2019_gpu_join_tpu_torch.ops.join_sorted\n"
         "import icde2019_gpu_join_tpu_torch.ops.perfect_hash\n"
+        "import icde2019_gpu_join_tpu_torch.ops.merge\n"
         "import icde2019_gpu_join_tpu_torch.ops._build\n"
         "import icde2019_gpu_join_tpu_torch.datagen\n"
         "import icde2019_gpu_join_tpu_torch.utils.datasets\n"
