@@ -8,7 +8,7 @@ its seconds:
   report     torch and CUDA versions, the card's name and power limit;
   build      the CUDA kernel library (nvcc, sm_90a) and the C++ host library,
              side by side;
-  kernel     each of the five kernels against its plain version on the card,
+  kernel     each of the first five kernels against its plain version on the card,
              exact int32 equality: the four banded kernels at small shapes
              (W > 1, full-range payloads, empty windows) and at the shape
              their path gives them, with both times at that shape; the
@@ -30,6 +30,25 @@ its seconds:
              `packed_sort_pairs` at 2^27 against `torch.sort` (keys equal,
              (key, payload) multiset equal; packed element for element),
              with their times and `torch.sort` + gather beside them;
+  kernel sort tiles  the tile sort (kernel 8, `benchmarks/experimental_sort.py`
+             of the port) against its plain version, keys and payloads exactly
+             equal: tiles of 1024 and 2^15, several tiles, distinct keys, keys
+             in [0, 16) (where the element-wise exchange of the reference
+             loses payloads: the count that survives is printed, kernel and
+             plain alike) and full-range keys with both extremes; then 2^27
+             pairs at tile 2^20 with distinct keys, with both times and
+             `torch.sort` of [128, 2^20] along dim 1 + gather beside them;
+  kernel stage  the stage kernel (kernel 9, `benchmarks/merge_sort_bench.py`
+             of the port): every distance at tile 2^12 (shared memory) and
+             2^15 (device memory), reps 1 and 3, then `bench_stages` at 2^24
+             through its entry point, then its eight (d, tile) cases at reps
+             24 against the plain version, with the rates;
+  probes     the ladder of construct probes (kernel 10,
+             `benchmarks/construct_probes.py` of the port) through
+             `run_probes`: every probe ok, with its time;
+  sort tools `bench_packed` and `bench_full` at 2^24 and `merge_fix_validate`
+             at 2^18 and 2^24 through their entry points, every check true,
+             window 32768 refused;
   mid        `ClusteredJoin.aggregate` at 2^24 x 2^24 uniform PK-FK (against
              the checked-in oracle value) and 2^22 x 2^22 Zipf z=1.05
              (against the C++ oracle);
@@ -70,22 +89,27 @@ its seconds:
              device memory; and the general numpy oracle at 2^20
              duplicate-key R x 2^23 S.
 
-The headline, sorts, materialize, partitioned, late and pipeline phases each
-zero the kernels' launch counts just before they drive their path, read them
-just after, and fail if a kernel of the path did not launch. Then one JSON
+The headline, sorts, materialize, partitioned, late and pipeline phases, and
+the four phases of the sort tools, each zero the kernels' launch counts just
+before they drive their path, read them just after, and fail if a kernel of
+the path did not launch. Then one JSON
 line on the kernels: each with its launches on its path, its time and its
 plain version's at the path's shape, and its bound there, the larger of the
 bytes it must move (each input read once, each output written once) over
 3.35 TB/s and the integer operations its function needs over the card's
 integer rate (SMs x 64 int32 lanes x the SM clock `nvidia-smi` reports;
-`KERNEL_OPS` says what is counted). No single PyTorch call computes any of
-these functions, so `library_ms` is null; the whole merge sort has
-`torch.sort` + gather beside it in the kernel merge phase. Last the result line `{"ok": true, "device": {...}}`.
+`KERNEL_OPS` says what is counted). `library_ms` is the one PyTorch call
+that computes the tile sort on distinct keys (`torch.sort` along dim 1 +
+gather); no single call computes any of the other functions, so it is null
+there; the whole merge sort has `torch.sort` + gather beside it in the kernel
+merge phase. The probe ladder is one entry: its launches are the probe
+kernels run, its times their sums, with a map per probe. Last the result line `{"ok": true, "device": {...}}`.
 Any failure raises, so the exit code is not 0 and no result line is
 printed; that includes a machine without CUDA.
 """
 
 import concurrent.futures
+import functools
 import json
 import os
 import subprocess
@@ -96,6 +120,10 @@ import numpy as np
 import torch
 
 from icde2019_gpu_join_tpu_torch import datagen
+from icde2019_gpu_join_tpu_torch.benchmarks import (construct_probes,
+                                                    experimental_sort,
+                                                    merge_fix_validate,
+                                                    merge_sort_bench)
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
 from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
@@ -125,6 +153,11 @@ BANDED_PALLAS = "icde2019_gpu_join_tpu/ops/band_compare_pallas.py"
 BANDED_SOURCE = "icde2019_gpu_join_tpu_torch/csrc/band_compare.cu"
 MERGE_PALLAS = "icde2019_gpu_join_tpu/ops/merge_pallas.py"
 MERGE_SOURCE = "icde2019_gpu_join_tpu_torch/csrc/merge.cu"
+SORT_TILES = (27, 1 << 20)        # (log2 rows, tile) of the tile sort's phase
+STAGE_SCALE = 24                  # log2 rows of `bench_stages`
+TOOLS_SCALE = 24                  # log2 rows of `bench_full`, `bench_packed`
+VALIDATE_SCALES = (18, 24)        # log2 rows of `merge_fix_validate`
+CSRC = "icde2019_gpu_join_tpu_torch/csrc"
 # kernel: (its CUDA source, the TPU kernel it replaces)
 ROUTES = {
     "banded_compare_sum": (BANDED_SOURCE, f"{BANDED_PALLAS}:44"),
@@ -136,16 +169,37 @@ ROUTES = {
         "icde2019_gpu_join_tpu/ops/probe_pallas.py:76"),
     "merge_levels_vmem": (MERGE_SOURCE, f"{MERGE_PALLAS}:182"),
     "merge_level_hbm": (MERGE_SOURCE, f"{MERGE_PALLAS}:313"),
+    "sort_tiles": (f"{CSRC}/sort_tiles.cu",
+                   "benchmarks/experimental_sort_pallas.py:100"),
+    "stage_reps": (f"{CSRC}/stage_reps.cu", "benchmarks/merge_sort_bench.py:77"),
+    "construct_probes": (f"{CSRC}/construct_probes.cu",
+                         "benchmarks/mosaic_bisect.py:89"),
 }
 # The integer operations each kernel's function needs per unit of work, for
 # its bound: per compared (S row, R column) pair a compare and one
 # predicated add (kernels 1 and 5), two adds (2), an add and a min (3), two
-# compares and three adds (4); per compare-exchange of the merge kernels a
-# compare and four selects.
+# compares and three adds (4); per compare-exchange of the merge kernels,
+# the tile sort, the stage kernel and the probes a compare and four selects.
 KERNEL_OPS = {"banded_compare_sum": 2, "banded_compare_per_s": 3,
               "banded_compare_first": 3, "banded_interval_select": 5,
               "probe_aggregate_ranges": 2, "merge_levels_vmem": 5,
-              "merge_level_hbm": 5}
+              "merge_level_hbm": 5, "sort_tiles": 5, "stage_reps": 5,
+              "construct_probes": 5}
+# The exchanges of each construct probe: (stages, exchanges a stage).
+PROBE_EXCHANGES = {
+    "transpose_only": (0, 0), "concat_only": (0, 0), "min_dma": (0, 0),
+    "lane_64": (1, 1 << 13), "lane_16": (1, 1 << 13), "lane_1": (1, 1 << 13),
+    "dirmask_stage": (1, 1 << 13), "sublane_ladder": (7, 1 << 13),
+    "lane_ladder_T": (7, 1 << 13), "concat_merge": (14, 1 << 14),
+    "min_dma_compute": (14, 1 << 14), "full_merge_T": (15, 1 << 14),
+    "merge_T_dm": (15, 1 << 14)}
+# The int32 elements each construct probe reads and writes.
+PROBE_ELEMENTS = {
+    "transpose_only": 2 << 14, "concat_only": 2 << 14, "min_dma": 2 << 15,
+    "lane_64": 3 << 14, "lane_16": 3 << 14, "lane_1": 3 << 14,
+    "dirmask_stage": 3 << 14, "sublane_ladder": 3 << 14,
+    "lane_ladder_T": 3 << 14, "concat_merge": 4 << 14,
+    "min_dma_compute": 2 << 15, "full_merge_T": 3 << 14, "merge_T_dm": 3 << 14}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64
 CARD = {}                   # "int_ops_per_s", set by phase_report
@@ -157,6 +211,11 @@ def _oracle_value(scale: int, skew: float) -> int:
                         f"oracle_agg_pkfk_s{scale}_z{skew}_seed{SEED}_gnative.json")
     with open(path) as f:
         return int(json.load(f)["aggregate"])
+
+
+# the modules whose wrappers count their kernels' launches
+COUNTED = (band_compare, probe_ranges, merge, experimental_sort,
+           merge_sort_bench, construct_probes)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -187,12 +246,14 @@ def _best_s(fn, reps: int = REPS):
 def _launched(fn):
     """Zero the launch counts, run fn once (synchronised), and return
     (fn's result, the launch counts of that run, every kernel)."""
-    for module in (band_compare, probe_ranges, merge):
+    for module in COUNTED:
         module.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, {**band_compare.LAUNCHES, **probe_ranges.LAUNCHES,
-                 **merge.LAUNCHES}
+    counts = {}
+    for module in COUNTED:
+        counts.update(module.LAUNCHES)
+    return out, counts
 
 
 def _bound(nbytes: int, int_ops: int) -> dict:
@@ -336,6 +397,10 @@ def phase_build():
     probe_ranges._kernel()
     for name in ("merge_levels", "merge_level_hbm"):
         merge._kernel(name)
+    experimental_sort._kernel()
+    merge_sort_bench._kernel()
+    for name in construct_probes.ENTRY_POINTS:
+        construct_probes._kernel(name)
     if datagen.native_lib() is None:
         raise RuntimeError("native host library did not load")
     print(f"[build] kernels {t_kernels:.2f}s ({_build.KERNEL_LIB}) "
@@ -404,13 +469,48 @@ def _range_work(cols, s_start, s_nch, tr: int, ts: int):
     return tile.size, tile.size * tr * ts
 
 
+@functools.lru_cache(maxsize=None)
 def _config1_tables():
-    """Config 1's keys and full-range payloads (numpy)."""
+    """Config 1's keys and full-range payloads (numpy; shared, read only)."""
     rk, sk = datasets.make_pk_fk(*CONFIG1, seed=SEED)
     rng = np.random.RandomState(SEED + 3)
     rp = rng.randint(-2**31, 2**31, rk.size, dtype=np.int64).astype(np.int32)
     sp = rng.randint(-2**31, 2**31, sk.size, dtype=np.int64).astype(np.int32)
     return rk, rp, sk, sp
+
+
+@functools.lru_cache(maxsize=None)
+def _config1_oracles() -> dict:
+    """Config 1's answers, computed once for the phases that join it: the
+    C++ oracle's aggregate, the numpy oracles' count, pair multiset (padded
+    with zero pairs to RING slots) and late sum over 4 R + 2 S seeded
+    columns of row-id payloads. Adding 1 to every key on both sides keeps
+    every match, so the shifted relations have the same answers."""
+    rk, rp, sk, sp = _config1_tables()
+    pairs = oracle.join_materialize(rk, rp, sk, sp)
+    if pairs.shape[0] > RING:
+        raise AssertionError(f"config 1: {pairs.shape[0]} pairs > {RING}")
+    pad = np.zeros(RING - pairs.shape[0], np.int32)
+    rs = np.random.RandomState(SEED + 4)
+    r_cols = rs.randint(-2**31, 2**31, (rk.size, 4), dtype=np.int64).astype(np.int32)
+    s_cols = rs.randint(-2**31, 2**31, (sk.size, 2), dtype=np.int64).astype(np.int32)
+    ids_r, ids_s = (np.arange(m, dtype=np.int32) for m in CONFIG1)
+    return {"aggregate": datagen.oracle_join_aggregate(rk, rp, sk, sp),
+            "count": oracle.join_count(rk, sk), "pairs": pairs.shape[0],
+            "multiset": _pair_multiset(np.concatenate([pairs[:, 0], pad]),
+                                       np.concatenate([pairs[:, 1], pad])),
+            "r_cols": r_cols, "s_cols": s_cols,
+            "late": oracle.join_late_materialize_sum(rk, ids_r, sk, ids_s,
+                                                     r_cols, s_cols)}
+
+
+def _same_config1_pairs(res, what: str):
+    want = _config1_oracles()
+    if res.count != want["pairs"] or not np.array_equal(
+            _pair_multiset(*(x.cpu().numpy() for x in res.pairs)),
+            want["multiset"]):
+        raise AssertionError(f"{what}: total {res.count} (oracle "
+                             f"{want['pairs']}) or pairs != oracle multiset")
 
 
 def phase_kernel_ranges() -> dict:
@@ -641,6 +741,222 @@ def phase_kernel_merge() -> dict:
     return stats
 
 
+# ---- kernels 8, 9, 10 and the sort tools --------------------------------------
+
+def _tile_keys(gen, kind: str, n: int) -> torch.Tensor:
+    if kind == "distinct":
+        return (torch.randperm(n, generator=gen, device=DEVICE)
+                - n // 2).to(torch.int32)
+    if kind == "dup16":
+        return _ints(gen, 0, 16, (n,))
+    keys = _full(gen, (n,))           # full range, both extremes present
+    keys[n // 3], keys[n // 2] = merge.INT_MIN, merge.INT_MAX
+    return keys
+
+
+SORT_TILE_SHAPES = [   # (tile, tiles, keys)
+    (1024, 5, "distinct"), (1024, 3, "dup16"), (1024, 7, "full"),
+    (1 << 15, 4, "distinct"), (1 << 15, 2, "dup16"), (1 << 15, 3, "full"),
+]
+
+
+def phase_kernel_sort_tiles() -> tuple:
+    """Kernel 8 against its plain version, keys and payloads exactly equal:
+    small shapes, then the headline width at the reference's default tile,
+    with both times and the library call beside them. Returns (its stats,
+    its launch count on that call)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 8)
+    es = experimental_sort
+    survivors = []
+    for tile, tiles, kind in SORT_TILE_SHAPES:
+        n = tile * tiles
+        sv = _tile_keys(gen, kind, n)
+        pay = torch.randperm(n, generator=gen, device=DEVICE).to(torch.int32)
+        got = es.sort_tiles(sv, pay, tile)
+        _same_pairs(got, es.sort_tiles_ref(sv, pay, tile),
+                    f"sort_tiles at {(tile, tiles, kind)}")
+        if not torch.equal(got[0], torch.sort(sv.view(tiles, tile), dim=1)
+                           .values.view(-1)):
+            raise AssertionError(f"sort_tiles at {(tile, tiles, kind)}: keys "
+                                 f"!= torch.sort")
+        if kind == "dup16":
+            survivors.append(f"{int(torch.unique(got[1]).numel())} of {n} at "
+                             f"tile {tile}")
+        elif kind == "distinct" and int(torch.unique(got[1]).numel()) != n:
+            raise AssertionError("sort_tiles lost a payload on distinct keys")
+    print(f"[kernel sort tiles] sort_tiles equal to plain at (tile, tiles, "
+          f"keys) in {SORT_TILE_SHAPES}; on keys in [0, 16) the element-wise "
+          f"exchange writes one payload of an equal pair twice and loses the "
+          f"other, as the reference's kernel does: distinct payloads that "
+          f"survive, kernel and plain alike: {', '.join(survivors)}")
+
+    lg, tile = SORT_TILES
+    n = 1 << lg
+    sv = _tile_keys(gen, "distinct", n)
+    pay = _full(gen, (n,))
+    kernel = lambda: es.sort_tiles(sv, pay, tile)
+    plain = lambda: es.sort_tiles_ref(sv, pay, tile)
+
+    def library():
+        keys, idx = torch.sort(sv.view(-1, tile), dim=1)
+        return keys.view(-1), torch.gather(pay.view(-1, tile), 1, idx).view(-1)
+
+    got, launches = _launched(kernel)
+    _require(launches, "sort_tiles", "sort_tiles")
+    err = _same_pairs(got, plain(), f"sort_tiles at 2^{lg}, tile {tile}")
+    _same_pairs(got, library(), "sort_tiles against torch.sort along dim 1")
+    del got
+    stages = tile.bit_length() - 1
+    stages = stages * (stages + 1) // 2
+    stats = {"max_abs_err": err, "ms": _time_ms(kernel, 3),
+             "plain_ms": _time_ms(plain, 1),
+             **_bound(16 * n, stages * (n // 2) * KERNEL_OPS["sort_tiles"]),
+             "library_ms": _time_ms(library, 3), "stages": stages}
+    print(f"[kernel sort tiles] n = 2^{lg}, tile {tile} ({stages} stages), "
+          f"distinct keys: kernel {stats['ms']:.4f} ms "
+          f"({n / stats['ms'] / 1e3:.1f} Melem/s), plain "
+          f"{stats['plain_ms']:.3f} ms, torch.sort of [{n // tile}, {tile}] "
+          f"along dim 1 + gather {stats['library_ms']:.4f} ms, bound "
+          f"{stats['bound_ms']:.4f} ms by {stats['bound_by']}; all three equal")
+    return stats, launches["sort_tiles"]
+
+
+def phase_kernel_stage() -> tuple:
+    """Kernel 9 against its plain version: every distance at a small tile in
+    shared memory and at one in device memory, then `bench_stages` through
+    its entry point, then its eight cases held against the plain version at
+    the same reps and timed beside it. Returns (stats, launches of
+    `bench_stages`)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 9)
+    msb = merge_sort_bench
+    shapes = []
+    for tile, tiles, lo, hi in ((1 << 12, 4, 0, 64),
+                                (1 << 15, 2, -2**31, 2**31)):
+        sv, pv = _sort_inputs(gen, tile * tiles, lo, hi)
+        for d in (1 << j for j in range(tile.bit_length() - 1)):
+            for reps in (1, 3):
+                _same_pairs(msb.stage_reps(sv, pv, d, reps, tile),
+                            msb.stage_reps_ref(sv, pv, d, reps, tile),
+                            f"stage_reps at {(tile, d, reps)}")
+        shapes.append(f"tile {tile} ({msb.stage_memory(tile)} memory), "
+                      f"d = 1 .. {tile // 2}, reps 1 and 3")
+    print(f"[kernel stage] stage_reps equal to plain at {'; '.join(shapes)}")
+
+    res, launches = _launched(lambda: msb.bench_stages(STAGE_SCALE, DEVICE))
+    _require(launches, "bench_stages", "stage_reps", "merge_levels_vmem")
+    if not msb.correct(res):
+        raise AssertionError(f"bench_stages: a stage != its plain version: {res}")
+
+    n, reps = 1 << STAGE_SCALE, msb.REPS
+    sv, pv = _sort_inputs(gen, n, -2**31, 2**31)
+    cases = {}
+    for name, d, tile in msb.stage_cases(n):
+        kernel = lambda: msb.stage_reps(sv, pv, d, reps, tile)
+        plain = lambda: msb.stage_reps_ref(sv, pv, d, reps, tile)
+        err = _same_pairs(kernel(), plain(), f"stage_reps at {(name, d, tile)}")
+        ms = _time_ms(kernel, 5)
+        bound = _bound(16 * n, reps * (n // 2) * KERNEL_OPS["stage_reps"])
+        cases[name] = {
+            "d": d, "tile": tile, "memory": msb.stage_memory(tile),
+            "max_abs_err": err, "ms": ms, "plain_ms": _time_ms(plain, 1),
+            "Gelem_stage_s": n * reps / ms / 1e6,
+            "bench_Gelem_stage_s": res[f"{name}_Gelem_stage_s"], **bound,
+            # what `reps` passes over device memory must move
+            "passes_bound_ms": bound["bound_ms"] * (
+                reps if msb.stage_memory(tile) == "global" else 1)}
+    first = next(iter(cases))
+    stats = {**{k: cases[first][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "at": first, "cases": cases, "vmem_level_ms": res["vmem_level_ms"]}
+    print(f"[kernel stage] n = 2^{STAGE_SCALE}, reps {reps}, equal to plain; "
+          + "; ".join(
+              f"{name} (d {c['d']}, tile {c['tile']}, {c['memory']}) "
+              f"{c['ms']:.4f} ms = {c['Gelem_stage_s']:.1f} Gelem-stage/s, "
+              f"plain {c['plain_ms']:.3f} ms" for name, c in cases.items())
+          + f"; bound {cases[first]['bound_ms']:.4f} ms by "
+          f"{cases[first]['bound_by']} (each input read once; {reps} passes "
+          f"over device memory: {cases[first]['passes_bound_ms']:.4f} ms); one "
+          f"in-block merge level at tile {res['vmem_level_tile']}: "
+          f"{res['vmem_level_ms']:.4f} ms")
+    return stats, launches["stage_reps"]
+
+
+def phase_probes() -> tuple:
+    """The whole ladder of construct probes through its entry point. Returns
+    (stats of the probe kernels, their launches on that run)."""
+    cp = construct_probes
+    lines, launches = _launched(lambda: cp.run_probes(device=DEVICE))
+    _require(launches, "construct probes", "construct_probes",
+             "merge_levels_vmem", "merge_level_hbm")
+    bad = [line for line in lines if not line["ok"]]
+    if bad or [line["probe"] for line in lines] != [n for n, _ in cp.PROBES]:
+        raise AssertionError(f"construct probes failed: {bad or lines}")
+    by_name = {line["probe"]: line for line in lines}
+    mine = {name: by_name[name] for name in cp.CONSTRUCTS}
+    ops = sum(stages * exchanges * KERNEL_OPS["construct_probes"]
+              for stages, exchanges in PROBE_EXCHANGES.values())
+    stats = {"max_abs_err": 0,
+             "ms": sum(line["ms"] for line in mine.values()),
+             "plain_ms": sum(line["plain_ms"] for line in mine.values()),
+             **_bound(4 * sum(PROBE_ELEMENTS.values()), ops),
+             "probes": len(mine),
+             "probe_ms": {name: line["ms"] for name, line in by_name.items()},
+             "probe_plain_ms": {name: line["plain_ms"]
+                                for name, line in by_name.items()}}
+    print(f"[probes] {len(lines)} probes ok, each equal to its plain version; "
+          f"ms, kernel / plain: " + ", ".join(
+              f"{n} {l['ms']:.4f} / {l['plain_ms']:.3f}" for n, l in by_name.items())
+          + f"; the {len(mine)} probe kernels together {stats['ms']:.4f} ms, "
+          f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']}; "
+          f"launches {launches}")
+    return stats, launches["construct_probes"]
+
+
+def phase_sort_tools():
+    """`bench_packed`, `bench_full` and `merge_fix_validate` through their
+    entry points, each result checked."""
+    msb = merge_sort_bench
+    packed = msb.bench_packed(TOOLS_SCALE, DEVICE)
+    full, launches = _launched(lambda: msb.bench_full(TOOLS_SCALE, DEVICE))
+    _require(launches, "bench_full", "merge_levels_vmem", "merge_level_hbm")
+    if not (msb.correct(packed) and msb.correct(full)):
+        raise AssertionError(f"bench_packed / bench_full: a wrong sort: "
+                             f"{packed} {full}")
+    fits = [name for name, _ in msb.FULL_VARIANTS if f"{name}_ms" in full]
+    if fits != ["merge", "merge_w4k", "merge_w2k"] or (
+            "merge_w32k_error" not in full):
+        raise AssertionError(f"bench_full: variants that ran {fits}: {full}")
+    for lg in VALIDATE_SCALES:
+        (check, speed), launches = _launched(
+            lambda: merge_fix_validate.validate(lg, DEVICE))
+        _require(launches, f"merge_fix_validate 2^{lg}", "merge_levels_vmem",
+                 "merge_level_hbm")
+        if not (check["keys_ok"] and check["pairs_ok"] and check["cascade"]):
+            raise AssertionError(f"merge_fix_validate at 2^{lg}: {check}")
+    # `bench_full` times whole calls, which the planner's launches on the
+    # host bound; the merge-path kernel alone, by window, at the first level
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 7)
+    n, run = 1 << TOOLS_SCALE, merge.DEVICE_VMEM_TILE
+    es, ep = _encoded_runs(*_sort_inputs(gen, n, -2**30, 2**30), run)
+    alone = {}
+    for name, geometry in msb.FULL_VARIANTS:
+        window = geometry.get("hbm_window", merge.HBM_WINDOW)
+        if f"{name}_ms" in full:
+            meta = merge.merge_level_meta(es, run, window)
+            alone[window] = (_time_ms(
+                lambda: merge.merge_tiles(es, ep, meta, window), 10),
+                meta.shape[1])
+    print(f"[sort tools] bench_packed and bench_full at 2^{TOOLS_SCALE} and "
+          f"merge_fix_validate at 2^{VALIDATE_SCALES} correct (their lines "
+          f"above); window 32768: {full['merge_w32k_error']}; the merge-path "
+          f"kernel alone at 2^{TOOLS_SCALE} pairs, run {run}, by window: "
+          + ", ".join(f"{w}: {ms:.4f} ms ({tiles} tiles)"
+                      for w, (ms, tiles) in alone.items()))
+
+
 def _relations(rk, rp, sk, sp):
     return (Relation.from_numpy(rk, rp, device=DEVICE),
             Relation.from_numpy(sk, sp, device=DEVICE))
@@ -771,43 +1087,33 @@ def phase_sorts(big) -> dict:
     rk, rp, sk, sp = _config1_tables()
     rk, sk = rk + 1, sk + 1
     r, s = _relations(rk, rp, sk, sp)
-    want1 = datagen.oracle_join_aggregate(rk, rp, sk, sp)
+    want1 = _config1_oracles()
     ranges = _sort_engine("merge", probe_mode="pallas")
     res, launches = _launched(lambda: ranges.aggregate(r, s))
     # partitions of 2^20 and 2^24 rows: 6 + 10 merge-path levels
     _expect_cascade(launches, "pallas config 1 merge", 2, 16, 2)
     _require(launches, "pallas config 1 merge", "probe_aggregate_ranges")
     t_c1, agg = _best_s(lambda: ranges.aggregate(r, s).aggregate)
-    if res.aggregate != want1 or agg != want1:
-        raise AssertionError(f"pallas config 1 merge: {agg} != {want1}")
+    if res.aggregate != want1["aggregate"] or agg != want1["aggregate"]:
+        raise AssertionError(f"pallas config 1 merge: {agg} != "
+                             f"{want1['aggregate']}")
     banded = _sort_engine("merge")
     res, launches = _launched(lambda: banded.materialize(r, s, capacity=RING))
     _expect_cascade(launches, "materialize config 1 merge", 2, 16, 2)
     t_mat, res = _best_s(lambda: banded.materialize(r, s, capacity=RING))
-    pairs = oracle.join_materialize(rk, rp, sk, sp)
-    pad = np.zeros(RING - pairs.shape[0], np.int32)
-    if res.count != pairs.shape[0] or not np.array_equal(
-            _pair_multiset(*(x.cpu().numpy() for x in res.pairs)),
-            _pair_multiset(np.concatenate([pairs[:, 0], pad]),
-                           np.concatenate([pairs[:, 1], pad]))):
-        raise AssertionError("materialize config 1 merge != oracle multiset")
-    del res, pairs
-    rs = np.random.RandomState(SEED + 4)
-    r_cols = rs.randint(-2**31, 2**31, (rk.size, 4), dtype=np.int64).astype(np.int32)
-    s_cols = rs.randint(-2**31, 2**31, (sk.size, 2), dtype=np.int64).astype(np.int32)
+    _same_config1_pairs(res, "materialize config 1 merge")
+    del res
     r_ids = Relation.from_numpy(rk, device=DEVICE)   # payloads: row ids
     s_ids = Relation.from_numpy(sk, device=DEVICE)
-    rc, sc = (torch.from_numpy(c).to(DEVICE) for c in (r_cols, s_cols))
+    rc, sc = (torch.from_numpy(want1[c]).to(DEVICE)
+              for c in ("r_cols", "s_cols"))
     late, launches = _launched(
         lambda: banded.late_aggregate(r_ids, s_ids, rc, sc).aggregate)
     _expect_cascade(launches, "late config 1 merge", 2, 16, 2)
     t_late, late = _best_s(
         lambda: banded.late_aggregate(r_ids, s_ids, rc, sc).aggregate)
-    ids_r, ids_s = (np.arange(m, dtype=np.int32) for m in CONFIG1)
-    want_late = oracle.join_late_materialize_sum(rk, ids_r, sk, ids_s,
-                                                 r_cols, s_cols)
-    if late != want_late:
-        raise AssertionError(f"late config 1 merge {late} != {want_late}")
+    if late != want1["late"]:
+        raise AssertionError(f"late config 1 merge {late} != {want1['late']}")
     lines.append(f"config 1, keys + 1, 'merge' (2 + 16 merge launches each): "
                  f"'pallas' = C++ oracle {t_c1 * 1e3:.3f} ms, materialize "
                  f"into {RING} = oracle multiset {t_mat * 1e3:.3f} ms, late "
@@ -919,7 +1225,8 @@ def _partitioned_config1(lines: list) -> dict:
     and the global hash table at config 1; returns the "pallas" launches."""
     rk, rp, sk, sp = _config1_tables()
     r, s = _relations(rk, rp, sk, sp)
-    want = datagen.oracle_join_aggregate(rk, rp, sk, sp)
+    oracles = _config1_oracles()
+    want = oracles["aggregate"]
     ranges = ClusteredJoin(EngineConfig(probe_mode="pallas"), device=DEVICE)
     res, launches = _launched(lambda: ranges.aggregate(r, s))
     _require(launches, "pallas config 1", "probe_aggregate_ranges")
@@ -932,34 +1239,21 @@ def _partitioned_config1(lines: list) -> dict:
     blocked = ClusteredJoin(EngineConfig(probe_mode="blocked"), device=DEVICE)
     t_agg, agg = _best_s(lambda: blocked.aggregate(r, s).aggregate)
     cnt = blocked.count(r, s).count
-    if agg != want or cnt != oracle.join_count(rk, sk):
+    if agg != want or cnt != oracles["count"]:
         raise AssertionError(f"blocked config 1: aggregate {agg} (oracle "
                              f"{want}), count {cnt}")
     t_mat, res = _best_s(lambda: blocked.materialize(r, s, capacity=RING))
-    pairs = oracle.join_materialize(rk, rp, sk, sp)
-    if res.count != pairs.shape[0] or pairs.shape[0] > RING:
-        raise AssertionError(f"blocked materialize: total {res.count} != "
-                             f"oracle {pairs.shape[0]}")
-    pad = np.zeros(RING - pairs.shape[0], np.int32)
-    if not np.array_equal(
-            _pair_multiset(*(x.cpu().numpy() for x in res.pairs)),
-            _pair_multiset(np.concatenate([pairs[:, 0], pad]),
-                           np.concatenate([pairs[:, 1], pad]))):
-        raise AssertionError("blocked materialize: pairs != oracle multiset")
-    del res, pairs
-    rs = np.random.RandomState(SEED + 4)
-    r_cols = rs.randint(-2**31, 2**31, (rk.size, 4), dtype=np.int64).astype(np.int32)
-    s_cols = rs.randint(-2**31, 2**31, (sk.size, 2), dtype=np.int64).astype(np.int32)
+    _same_config1_pairs(res, "blocked materialize")
+    del res
     r_ids = Relation.from_numpy(rk, device=DEVICE)   # payloads: row ids
     s_ids = Relation.from_numpy(sk, device=DEVICE)
-    rc, sc = (torch.from_numpy(c).to(DEVICE) for c in (r_cols, s_cols))
+    rc, sc = (torch.from_numpy(oracles[c]).to(DEVICE)
+              for c in ("r_cols", "s_cols"))
     t_late, late = _best_s(
         lambda: blocked.late_aggregate(r_ids, s_ids, rc, sc).aggregate)
-    ids_r, ids_s = (np.arange(n, dtype=np.int32) for n in CONFIG1)
-    want_late = oracle.join_late_materialize_sum(rk, ids_r, sk, ids_s,
-                                                 r_cols, s_cols)
-    if late != want_late:
-        raise AssertionError(f"blocked late aggregate {late} != {want_late}")
+    if late != oracles["late"]:
+        raise AssertionError(f"blocked late aggregate {late} != "
+                             f"{oracles['late']}")
     lines.append(f"blocked config 1 ({default_bits_for(CONFIG1[1], 256)} "
                  f"bits): aggregate {t_agg * 1e3:.3f} ms, count = {cnt}, "
                  f"materialize into {RING} = oracle multiset "
@@ -1166,6 +1460,14 @@ def main():
     kstats["probe_aggregate_ranges"] = _timed("kernel ranges",
                                               phase_kernel_ranges)
     kstats.update(_timed("kernel merge", phase_kernel_merge))
+    tools = {}   # kernels 8-10: launches on their tools' runs
+    for name, label, phase in (
+            ("sort_tiles", "kernel sort tiles", phase_kernel_sort_tiles),
+            ("stage_reps", "kernel stage", phase_kernel_stage),
+            ("construct_probes", "probes", phase_probes)):
+        kstats[name], tools[name] = _timed(label, phase)
+        torch.cuda.empty_cache()
+    _timed("sort tools", phase_sort_tools)
     _timed("mid", phase_mid)
     head, big = _timed("headline", phase_headline)
     sorts = _timed("sorts", phase_sorts, big)
@@ -1178,14 +1480,15 @@ def main():
     pipe = _timed("pipeline", phase_pipeline)
     # each kernel's launches on its path: the aggregate, the config-3
     # pipeline, the config-2 ring, the 2^24 fast-path materialize, the
-    # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"
+    # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"; the tile
+    # sort's call, `bench_stages`, the probe ladder
     launches = {"banded_compare_sum": head["banded_compare_sum"],
                 "banded_compare_per_s": pipe["banded_compare_per_s"],
                 "banded_compare_first": ring["banded_compare_first"],
                 "banded_interval_select": fast["banded_interval_select"],
                 "probe_aggregate_ranges": part["probe_aggregate_ranges"],
                 "merge_levels_vmem": sorts["merge_levels_vmem"],
-                "merge_level_hbm": sorts["merge_level_hbm"]}
+                "merge_level_hbm": sorts["merge_level_hbm"], **tools}
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -83,7 +83,7 @@ def _row_colsums(cols: torch.Tensor, rowid: torch.Tensor) -> torch.Tensor:
 class ClusteredJoin:
     """In-memory join of two relations that lie on `device`."""
 
-    def __init__(self, config: Optional[EngineConfig] = None, device="cpu"):
+    def __init__(self, config: Optional[EngineConfig] = None, device="cuda"):
         self.config = config or EngineConfig()
         self.device = torch.device(device)
         mode = self.config.probe_mode

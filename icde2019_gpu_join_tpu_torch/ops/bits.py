@@ -50,7 +50,7 @@ def unrotate_keys(sortval: torch.Tensor, total_bits: int, first_bit: int = 0) ->
     return u
 
 
-def partition_boundaries(total_bits: int, device=None) -> torch.Tensor:
+def partition_boundaries(total_bits: int, device="cuda") -> torch.Tensor:
     """The smallest sortval of each partition. Shape [2^total_bits], int32."""
     p = torch.arange(1 << total_bits, dtype=torch.int64, device=device)
     return wrap_i32((p << (32 - total_bits)) ^ (1 << 31))

@@ -50,7 +50,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -111,11 +111,13 @@ def _check_pairs(sv: torch.Tensor, pv: torch.Tensor):
 # stage arithmetic of the plain versions (flat int32 arrays)
 # ---------------------------------------------------------------------------
 
-def _cx(sv: torch.Tensor, pv: torch.Tensor, d: int, out_run: int = 0):
+def _cx(sv: torch.Tensor, pv: torch.Tensor, d: int, out_run: int = 0,
+        flip: Optional[torch.Tensor] = None):
     """One compare-exchange stage at distance d over flat arrays: in every
     2d-aligned group the smaller key lands in the low half. With out_run,
     the direction flips in the odd runs of that length, counted from the
-    arrays' first element (2d <= out_run, so a group lies in one run)."""
+    arrays' first element (2d <= out_run, so a group lies in one run). With
+    flip (bool, broadcastable to [groups, d]), it flips per exchange."""
     a = sv.view(-1, 2, d)
     p = pv.view(-1, 2, d)
     lo, hi = a[:, 0], a[:, 1]
@@ -123,6 +125,8 @@ def _cx(sv: torch.Tensor, pv: torch.Tensor, d: int, out_run: int = 0):
     if out_run:
         group = torch.arange(a.shape[0], device=sv.device)
         swap ^= (((group * (2 * d)) // out_run) & 1).bool()[:, None]
+    if flip is not None:
+        swap ^= flip
     nsv = torch.stack([torch.where(swap, hi, lo), torch.where(swap, lo, hi)], 1)
     plo, phi = p[:, 0], p[:, 1]
     npv = torch.stack([torch.where(swap, phi, plo), torch.where(swap, plo, phi)], 1)
@@ -460,23 +464,41 @@ def encode_base_runs(sv: torch.Tensor, pv: torch.Tensor
     return sv2.view(-1), torch.gather(pv.view(-1, BASE_RUN), 1, idx).view(-1)
 
 
-def _merge_sort_cascade(sv: torch.Tensor, pv: torch.Tensor
+def _merge_sort_cascade(sv: torch.Tensor, pv: torch.Tensor,
+                        vmem_tile: int = DEVICE_VMEM_TILE,
+                        vmem_levels_per_call: int = 2,
+                        hbm_window: int = HBM_WINDOW,
+                        lane_transpose: bool = True,
+                        hbm_double_buffer: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Base runs, then in-block levels (two a launch) up to runs of
-    DEVICE_VMEM_TILE, then merge-path levels. n must be a power of two
-    >= 2 * BASE_RUN. The last level's single output run has an even index,
-    so the result is plain ascending keys. Each level's inputs are freed as
-    the next is made."""
+    """Base runs, then in-block levels (`vmem_levels_per_call` a launch) up
+    to runs of `vmem_tile`, then merge-path levels with windows of
+    `hbm_window`. n must be a power of two >= 2 * BASE_RUN. The last level's
+    single output run has an even index, so the result is plain ascending
+    keys. Each level's inputs are freed as the next is made.
+
+    The result does not depend on the geometry; what fits a thread block
+    does. On the card a geometry whose output run or window pair passes
+    MAX_BLOCK_ELEMS raises the `ValueError` of `merge_levels_vmem` /
+    `merge_tiles`; no other geometry is picked in its place.
+
+    `lane_transpose` and `hbm_double_buffer` chose, on the TPU, between
+    formulations of one kernel body that compute the same arrays (the small
+    stages on a transposed tile; one grid step's copies overlapped with the
+    next one's merge). One kernel stands for each pair here, so the two
+    arguments select nothing."""
+    del lane_transpose, hbm_double_buffer
     n = sv.shape[0]
     sv, pv = encode_base_runs(sv, pv)
     run = BASE_RUN
-    tile = min(DEVICE_VMEM_TILE, n)
+    tile = min(vmem_tile, n)
     while run < tile:
-        levels = min(2, int(math.log2(tile)) - int(math.log2(run)))
+        levels = min(vmem_levels_per_call,
+                     int(math.log2(tile)) - int(math.log2(run)))
         sv, pv = merge_levels_vmem(sv, pv, run, levels, tile_elems=tile)
         run <<= levels
     while run < n:
-        sv, pv = merge_level_hbm(sv, pv, run)
+        sv, pv = merge_level_hbm(sv, pv, run, window=hbm_window)
         run <<= 1
     return sv, pv
 

@@ -45,7 +45,7 @@ class ProbePlan:
     def padded_items(self) -> int:
         return self.r_start.shape[0]
 
-    def as_device(self, device="cpu") -> Tuple[torch.Tensor, ...]:
+    def as_device(self, device="cuda") -> Tuple[torch.Tensor, ...]:
         return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
                      for a in (self.r_start, self.r_len, self.s_start,
                                self.s_len))

@@ -34,7 +34,7 @@ class Relation:
 
     @classmethod
     def from_numpy(cls, keys: np.ndarray, payload: Optional[np.ndarray] = None,
-                   device="cpu") -> "Relation":
+                   device="cuda") -> "Relation":
         k = torch.from_numpy(np.ascontiguousarray(keys, dtype=np.int32))
         p = None if payload is None else torch.from_numpy(
             np.ascontiguousarray(payload, dtype=np.int32))
@@ -73,7 +73,7 @@ class PartitionedRelation:
 
     @classmethod
     def from_numpy(cls, keys, payload, counts, offsets, total_bits: int,
-                   first_bit: int, device="cpu") -> "PartitionedRelation":
+                   first_bit: int, device="cuda") -> "PartitionedRelation":
         """From host arrays, e.g. `np.asarray` of a JAX PartitionedRelation's
         fields; every column becomes an int32 tensor on `device`."""
         cols = (torch.from_numpy(np.array(a, dtype=np.int32)).to(device)

@@ -77,6 +77,32 @@ class PhaseTimer:
         print(json.dumps(self.report(extra)))
 
 
+def best_ms(fn, device, reps: int = 5) -> float:
+    """Best time of one call of fn in milliseconds over `reps` calls, after
+    one warm-up call: by CUDA events when `device` is a card (the call's
+    device work), else by the host clock."""
+    if torch.device(device).type != "cuda":
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+    fn()
+    torch.cuda.synchronize(device)
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
 def ref_throughput_mbps(n_r: int, n_s: int, seconds: float) -> float:
     """The reference's headline metric: 2*(|R|+|S|)*4 bytes / t in MB/s
     (src/hash_join_clustered_probe.cu:938-940)."""

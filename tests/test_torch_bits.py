@@ -45,7 +45,7 @@ def test_unrotate_inverts_rotate(total_bits, first_bit):
 @pytest.mark.parametrize("total_bits", [1, 4, 13])
 def test_partition_boundaries_match_jax(total_bits):
     want = np.asarray(jbits.partition_boundaries(total_bits))
-    got = tbits.partition_boundaries(total_bits)
+    got = tbits.partition_boundaries(total_bits, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
 
 

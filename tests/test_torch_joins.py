@@ -2,6 +2,7 @@
 package's, and the rule that the port never imports JAX."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -20,7 +21,8 @@ from icde2019_gpu_join_tpu.utils import oracle
 from icde2019_gpu_join_tpu_torch import datagen as tdatagen
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, RadixConfig
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin
-from icde2019_gpu_join_tpu_torch.relation import Relation
+from icde2019_gpu_join_tpu_torch.ops import bits as tbits, probe as tprobe
+from icde2019_gpu_join_tpu_torch.relation import PartitionedRelation, Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets as tdatasets
 from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
 from tests.conftest import make_tables
@@ -29,7 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _rels(rk, rp, sk, sp):
-    port = (Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp))
+    port = (Relation.from_numpy(rk, rp, device="cpu"),
+            Relation.from_numpy(sk, sp, device="cpu"))
     jax = (JaxRelation(jnp.asarray(rk), jnp.asarray(rp)),
            JaxRelation(jnp.asarray(sk), jnp.asarray(sp)))
     return port, jax
@@ -41,11 +44,11 @@ def _rels(rk, rp, sk, sp):
 def test_aggregate_and_count_match_jax(rng, n_r, n_s, dup):
     rk, rp, sk, sp = make_tables(rng, n_r=n_r, n_s=n_s, dup_build=dup)
     (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
-    res = ClusteredJoin().aggregate(tr, ts)
+    res = ClusteredJoin(device="cpu").aggregate(tr, ts)
     assert res.aggregate == JaxJoin().aggregate(jr, js).aggregate
     assert res.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
     assert res.timer.seconds("join") > 0
-    cnt = ClusteredJoin().count(tr, ts).count
+    cnt = ClusteredJoin(device="cpu").count(tr, ts).count
     assert cnt == JaxJoin().count(jr, js).count == toracle.join_count(rk, sk)
 
 
@@ -53,7 +56,8 @@ def test_aggregate_and_count_match_jax(rng, n_r, n_s, dup):
 def test_window_blocks_from_config(rng, w):
     rk, rp, sk, sp = make_tables(rng, dup_build=True)
     (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
-    got = ClusteredJoin(EngineConfig(band_window_blocks=w)).aggregate(tr, ts)
+    got = ClusteredJoin(EngineConfig(band_window_blocks=w),
+                        device="cpu").aggregate(tr, ts)
     want = JaxJoin(jconfig.EngineConfig(band_window_blocks=w)).aggregate(jr, js)
     assert got.aggregate == want.aggregate
 
@@ -77,9 +81,29 @@ def test_default_bits_match_jax():
 
 def test_unported_modes_raise():
     with pytest.raises(ValueError, match="unknown probe_mode 'hash'"):
-        ClusteredJoin(EngineConfig(probe_mode="hash"))
+        ClusteredJoin(EngineConfig(probe_mode="hash"), device="cpu")
     with pytest.raises(ValueError, match="unknown sort_impl 'bitonic'"):
-        ClusteredJoin(EngineConfig(sort_impl="bitonic"))
+        ClusteredJoin(EngineConfig(sort_impl="bitonic"), device="cpu")
+
+
+@pytest.mark.parametrize("entry", [
+    ClusteredJoin.__init__, Relation.from_numpy, PartitionedRelation.from_numpy,
+    tprobe.ProbePlan.as_device, tbits.partition_boundaries],
+    ids=lambda f: f.__qualname__)
+def test_the_card_is_the_default_device(entry):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU (as every test here does); without a card the default raises,
+    as torch does."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_benchmark_tools_default_to_the_card():
+    from icde2019_gpu_join_tpu_torch.benchmarks import (
+        construct_probes, merge_fix_validate, merge_sort_bench)
+    for fn in (merge_sort_bench.bench_stages, merge_sort_bench.bench_packed,
+               merge_sort_bench.bench_full, merge_fix_validate.validate,
+               construct_probes.run_probes):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_relation_device_must_match_engine():
@@ -101,7 +125,7 @@ def test_relation_default_payload_is_row_ids_on_its_device(device):
     assert rel.payload.dtype == torch.int32 and rel.payload.shape == (300,)
     if device is None:
         assert torch.equal(rel.payload, torch.arange(300, dtype=torch.int32))
-    rel = Relation.from_numpy(np.zeros(5, np.int32))
+    rel = Relation.from_numpy(np.zeros(5, np.int32), device="cpu")
     assert torch.equal(rel.payload, torch.arange(5, dtype=torch.int32))
 
 
@@ -115,7 +139,7 @@ def test_materialize_matches_jax(rng, n_r, n_s, dup, w):
     (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
     total = toracle.join_count(rk, sk)
     cap = total + 300
-    res = ClusteredJoin(EngineConfig(band_window_blocks=w)).materialize(
+    res = ClusteredJoin(EngineConfig(band_window_blocks=w), device="cpu").materialize(
         tr, ts, capacity=cap)
     want = JaxJoin(jconfig.EngineConfig(band_window_blocks=w)).materialize(
         jr, js, capacity=cap)
@@ -134,8 +158,10 @@ def test_materialize_matches_jax(rng, n_r, n_s, dup, w):
 
 def test_materialize_default_capacity_is_out_capacity(rng):
     rk, rp, sk, sp = make_tables(rng, n_r=500, n_s=900)
-    tr, ts = Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)
-    res = ClusteredJoin(EngineConfig(out_capacity=1 << 10)).materialize(tr, ts)
+    tr, ts = (Relation.from_numpy(rk, rp, device="cpu"),
+              Relation.from_numpy(sk, sp, device="cpu"))
+    res = ClusteredJoin(EngineConfig(out_capacity=1 << 10),
+                        device="cpu").materialize(tr, ts)
     assert res.pairs[0].shape == res.pairs[1].shape == (1 << 10,)
     assert res.count == toracle.join_count(rk, sk)
 
@@ -147,10 +173,10 @@ def test_late_aggregate_matches_jax(rng, c1, c2, dup):
     s_cols = rng.randint(-2**31, 2**31, (sk.size, c2), dtype=np.int64).astype(np.int32)
     r_ids = np.arange(rk.size, dtype=np.int32)
     s_ids = rng.permutation(sk.size).astype(np.int32)   # payloads are row ids
-    tr = Relation.from_numpy(rk)
-    ts = Relation.from_numpy(sk, s_ids)
-    got = ClusteredJoin().late_aggregate(tr, ts, torch.from_numpy(r_cols),
-                                         torch.from_numpy(s_cols))
+    tr = Relation.from_numpy(rk, device="cpu")
+    ts = Relation.from_numpy(sk, s_ids, device="cpu")
+    got = ClusteredJoin(device="cpu").late_aggregate(
+        tr, ts, torch.from_numpy(r_cols), torch.from_numpy(s_cols))
     want = JaxJoin().late_aggregate(
         JaxRelation(jnp.asarray(rk), jnp.asarray(r_ids)),
         JaxRelation(jnp.asarray(sk), jnp.asarray(s_ids)),
@@ -166,8 +192,9 @@ def test_late_aggregate_clamps_row_ids_like_jax():
     s_ids = np.array([3, 20, -2, 0, 1, 4], np.int32)
     r_cols = np.arange(12, dtype=np.int32).reshape(6, 2) * 1000
     s_cols = np.arange(6, dtype=np.int32)[:, None] + 1
-    got = ClusteredJoin().late_aggregate(
-        Relation.from_numpy(rk, r_ids), Relation.from_numpy(sk, s_ids),
+    got = ClusteredJoin(device="cpu").late_aggregate(
+        Relation.from_numpy(rk, r_ids, device="cpu"),
+        Relation.from_numpy(sk, s_ids, device="cpu"),
         torch.from_numpy(r_cols), torch.from_numpy(s_cols))
     want = JaxJoin().late_aggregate(
         JaxRelation(jnp.asarray(rk), jnp.asarray(r_ids)),
@@ -180,7 +207,7 @@ def test_late_aggregate_columns_must_be_on_the_engine_device():
     r = Relation(torch.zeros(4, dtype=torch.int32))
     cols = torch.zeros((4, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="r_cols is on meta"):
-        ClusteredJoin().late_aggregate(r, r, cols.to("meta"), cols)
+        ClusteredJoin(device="cpu").late_aggregate(r, r, cols.to("meta"), cols)
 
 
 def test_make_pk_fk_byte_identical(tmp_path, monkeypatch):
@@ -244,9 +271,15 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch.utils.datasets\n"
         "import icde2019_gpu_join_tpu_torch.utils.oracle\n"
         "import icde2019_gpu_join_tpu_torch.utils.timing\n"
+        "import icde2019_gpu_join_tpu_torch.benchmarks as B, pkgutil, importlib\n"
+        "names = [m.name for m in pkgutil.iter_modules(B.__path__)]\n"
+        "assert sorted(names) == ['construct_probes', 'experimental_sort', "
+        "'merge_fix_validate', 'merge_sort_bench'], names\n"
+        "for name in names:\n"
+        "    importlib.import_module(B.__name__ + '.' + name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'icde2019_gpu_join_tpu'))\n"
+        "('jax', 'jaxlib', 'icde2019_gpu_join_tpu', 'benchmarks'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -293,7 +326,8 @@ def test_with_bits_matches_jax():
 @pytest.mark.parametrize("n", [100, 5000, 1 << 20])
 def test_radix_bits_per_mode_match_jax(mode, n):
     cfg, jcfg = _small(mode)
-    assert ClusteredJoin(cfg)._bits(n, 3 * n) == JaxJoin(jcfg)._bits(n, 3 * n)
+    assert (ClusteredJoin(cfg, device="cpu")._bits(n, 3 * n)
+            == JaxJoin(jcfg)._bits(n, 3 * n))
 
 
 @pytest.mark.parametrize("mode", PARTITIONED)
@@ -306,11 +340,11 @@ def test_partitioned_aggregate_and_count(rng, mode, kind):
     rk, rp, sk, sp = _mode_tables(rng, kind)
     (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
     cfg, jcfg = _small(mode)
-    got = ClusteredJoin(cfg).aggregate(tr, ts)
+    got = ClusteredJoin(cfg, device="cpu").aggregate(tr, ts)
     assert got.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
     if mode != "pallas":
         assert got.aggregate == JaxJoin(jcfg).aggregate(jr, js).aggregate
-    cnt = ClusteredJoin(cfg).count(tr, ts).count
+    cnt = ClusteredJoin(cfg, device="cpu").count(tr, ts).count
     assert cnt == JaxJoin(jcfg).count(jr, js).count == toracle.join_count(rk, sk)
 
 
@@ -322,7 +356,7 @@ def test_partitioned_materialize_matches_jax(rng, mode):
     (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
     cfg, jcfg = _small(mode)
     total = toracle.join_count(rk, sk)
-    res = ClusteredJoin(cfg).materialize(tr, ts, capacity=total + 50)
+    res = ClusteredJoin(cfg, device="cpu").materialize(tr, ts, capacity=total + 50)
     want = JaxJoin(jcfg).materialize(jr, js, capacity=total + 50)
     assert res.count == want.count == total
     assert res.pairs[0].shape == (total + 50,)
@@ -347,7 +381,7 @@ def test_blocked_materialize_ring_wraps_like_jax(rng):
     (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
     cfg, jcfg = _small("blocked")
     total = toracle.join_count(rk, sk)
-    res = ClusteredJoin(cfg).materialize(tr, ts, capacity=2800)
+    res = ClusteredJoin(cfg, device="cpu").materialize(tr, ts, capacity=2800)
     want = JaxJoin(jcfg).materialize(jr, js, capacity=2800)
     assert res.count == want.count == total > 2 * 2800
     for g, w in zip(res.pairs, want.pairs):
@@ -362,8 +396,9 @@ def test_partitioned_late_aggregate_matches_jax(rng, mode):
     r_ids = np.arange(rk.size, dtype=np.int32)
     s_ids = rng.permutation(sk.size).astype(np.int32)
     cfg, jcfg = _small(mode)
-    got = ClusteredJoin(cfg).late_aggregate(
-        Relation.from_numpy(rk), Relation.from_numpy(sk, s_ids),
+    got = ClusteredJoin(cfg, device="cpu").late_aggregate(
+        Relation.from_numpy(rk, device="cpu"),
+        Relation.from_numpy(sk, s_ids, device="cpu"),
         torch.from_numpy(r_cols), torch.from_numpy(s_cols))
     want = JaxJoin(jcfg).late_aggregate(
         JaxRelation(jnp.asarray(rk), jnp.asarray(r_ids)),
@@ -388,9 +423,10 @@ def test_pallas_mode_routes_to_the_range_probe(rng, monkeypatch):
 
     monkeypatch.setattr(probe_ranges, "probe_aggregate_ranges", spy)
     rk, rp, sk, sp = make_tables(rng, n_r=3000, n_s=9000)
-    tr, ts = Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)
+    tr, ts = (Relation.from_numpy(rk, rp, device="cpu"),
+              Relation.from_numpy(sk, sp, device="cpu"))
     engine = ClusteredJoin(EngineConfig(probe_mode="pallas", probe_tile_s=2048)
-                           .with_bits(7))
+                           .with_bits(7), device="cpu")
     res = engine.aggregate(tr, ts)
     assert res.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
     assert calls == [{"tile_r": 1024, "tile_s": 2048}]
@@ -413,8 +449,9 @@ def test_perfect_mode_takes_the_blocked_probe(rng, monkeypatch):
 
     monkeypatch.setattr(tprobe, "blocked_probe_aggregate", spy)
     rk, rp, sk, sp = make_tables(rng, n_r=1000, n_s=3000)
-    tr, ts = Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)
-    res = ClusteredJoin(EngineConfig(probe_mode="perfect").with_bits(5)
+    tr, ts = (Relation.from_numpy(rk, rp, device="cpu"),
+              Relation.from_numpy(sk, sp, device="cpu"))
+    res = ClusteredJoin(EngineConfig(probe_mode="perfect").with_bits(5), device="cpu"
                         ).aggregate(tr, ts)
     assert res.aggregate == toracle.join_aggregate(rk, rp, sk, sp)
     assert seen == [1000]
@@ -424,8 +461,9 @@ def test_partitioned_modes_with_an_empty_side(rng):
     rk = rng.permutation(500).astype(np.int32)
     empty = np.zeros(0, np.int32)
     for mode in PARTITIONED:
-        engine = ClusteredJoin(_small(mode)[0])
+        engine = ClusteredJoin(_small(mode)[0], device="cpu")
         for r, s in ((rk, empty), (empty, rk)):
-            tr, ts = Relation.from_numpy(r), Relation.from_numpy(s)
+            tr, ts = (Relation.from_numpy(r, device="cpu"),
+                      Relation.from_numpy(s, device="cpu"))
             assert engine.aggregate(tr, ts).aggregate == 0
             assert engine.count(tr, ts).count == 0

@@ -124,7 +124,7 @@ def test_partitioned_relation_carries_across_from_jax(rng):
     jp = jpart.radix_partition(jnp.asarray(keys), jnp.asarray(pays), 7, 1)
     tp = PartitionedRelation.from_numpy(
         *(np.asarray(a) for a in (jp.keys, jp.payload, jp.counts, jp.offsets)),
-        jp.total_bits, jp.first_bit)
+        jp.total_bits, jp.first_bit, device="cpu")
     assert (tp.num_rows, tp.num_partitions) == (1500, 128)
     assert (tp.total_bits, tp.first_bit) == (7, 1)
     assert tp.device == torch.device("cpu")

@@ -158,7 +158,8 @@ def test_filter_then_join_aggregate(rng, w):
     rk, rp, sk, fcol, _ = _pk_inputs(rng, n_s=4000)
     sp = rng.randint(-(2**31), 2**31, sk.size).astype(np.int64).astype(np.int32)
     got = TP.filter_then_join_aggregate(
-        Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp),
+        Relation.from_numpy(rk, rp, device="cpu"),
+        Relation.from_numpy(sk, sp, device="cpu"),
         torch.from_numpy(fcol), 30, 60, EngineConfig(band_window_blocks=w))
     want = JP.filter_then_join_aggregate(
         JaxRelation(jnp.asarray(rk), jnp.asarray(rp)),

@@ -41,7 +41,7 @@ class Case:
         self.js = jax_partition(jnp.asarray(sk), jnp.asarray(sp), bits, 0)
         self.tr, self.ts = (PartitionedRelation.from_numpy(
             *(np.asarray(a) for a in (p.keys, p.payload, p.counts, p.offsets)),
-            bits, 0) for p in (self.jr, self.js))
+            bits, 0, device="cpu") for p in (self.jr, self.js))
         args = (np.asarray(self.jr.counts), np.asarray(self.jr.offsets[:-1]),
                 np.asarray(self.js.counts), np.asarray(self.js.offsets[:-1]))
         self.jplan = jprobe.plan_probe(*args, tile_r=tile, tile_s=tile,
@@ -49,7 +49,7 @@ class Case:
         self.plan = probe.plan_probe(*args, tile_r=tile, tile_s=tile,
                                      pad_items_to=pad_items_to)
         self.jdev = self.jplan.as_device()
-        self.dev = self.plan.as_device()
+        self.dev = self.plan.as_device(device="cpu")
         self.tiles = dict(tile_r=tile, tile_s=tile)
 
 

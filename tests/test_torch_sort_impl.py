@@ -50,13 +50,15 @@ def _tables(kind, dup=False):
 
 
 def _rels(rk, rp, sk, sp):
-    return ((Relation.from_numpy(rk, rp), Relation.from_numpy(sk, sp)),
+    return ((Relation.from_numpy(rk, rp, device="cpu"),
+             Relation.from_numpy(sk, sp, device="cpu")),
             (JaxRelation(jnp.asarray(rk), jnp.asarray(rp)),
              JaxRelation(jnp.asarray(sk), jnp.asarray(sp))))
 
 
 def _engines(impl, mode="banded", **kw):
-    return (ClusteredJoin(EngineConfig(probe_mode=mode, sort_impl=impl, **kw)),
+    return (ClusteredJoin(EngineConfig(probe_mode=mode, sort_impl=impl, **kw),
+                          device="cpu"),
             JaxJoin(jconfig.EngineConfig(probe_mode=mode, sort_impl=impl, **kw)))
 
 
@@ -122,7 +124,8 @@ def test_banded_late_aggregate(impl, kind):
     s_ids = rng.permutation(N_S).astype(np.int32)
     port, jax_ = _engines(impl)
     got = _routed(lambda: port.late_aggregate(
-        Relation.from_numpy(rk), Relation.from_numpy(sk, s_ids),
+        Relation.from_numpy(rk, device="cpu"),
+        Relation.from_numpy(sk, s_ids, device="cpu"),
         torch.from_numpy(r_cols), torch.from_numpy(s_cols)).aggregate,
         impl, kind, 2)
     want = jax_.late_aggregate(
@@ -268,9 +271,9 @@ def test_engines_with_different_sort_impls_coexist():
     rk, rp, sk, sp = _tables("cascade")
     (tr, ts), _ = _rels(rk, rp, sk, sp)
     want = toracle.join_aggregate(rk, rp, sk, sp)
-    engines = {impl: ClusteredJoin(EngineConfig(sort_impl=impl))
+    engines = {impl: ClusteredJoin(EngineConfig(sort_impl=impl), device="cpu")
                for impl in IMPLS}
-    engines[None] = ClusteredJoin()
+    engines[None] = ClusteredJoin(device="cpu")
     assert engines[None].sort_impl == "lax"
     for impl in ("merge", "lax", "packed", None, "merge", "lax"):
         got = _routed(lambda: engines[impl].aggregate(tr, ts).aggregate,
@@ -284,7 +287,7 @@ def test_unknown_sort_impl_raises(where):
     rk, rp, sk, sp = (torch.from_numpy(a) for a in _tables("cascade"))
     with pytest.raises(ValueError, match="unknown sort_impl 'bitonic'"):
         if where == "engine":
-            ClusteredJoin(EngineConfig(sort_impl="bitonic"))
+            ClusteredJoin(EngineConfig(sort_impl="bitonic"), device="cpu")
         elif where == "sort_pairs":
             band_join.sort_pairs(rk, rp, "bitonic")
         elif where == "aggregate":
