@@ -3,7 +3,11 @@
 
 Run from the repository root: `python3 chip_smoke.py`. It builds the port's
 kernels and drives its paths on the card, each phase printing one line with
-its seconds:
+its seconds. `python3 chip_smoke.py --phases "kernel merge,sorts"` runs
+`report`, `build` and only the named phases (`PHASES`; `headline` comes
+along where a phase joins its relations), each whole, and ends with a line
+that names them: it prints no `kernels` line and no result line, so only a
+run of all phases can pass. The phases:
 
   report     torch and CUDA versions, the card's name and power limit;
   build      the CUDA kernel library (nvcc, sm_90a) and the C++ host library,
@@ -16,23 +20,30 @@ its seconds:
              per R tile, tiles with no chunks, a skewed tile with hundreds of
              chunks, chunk counts past S, full-range payloads) and at
              config 1's full plan, with both times there;
-  kernel merge  the merge sort's two kernels (6: `merge_levels_vmem`, 7: the
-             kernel step of `merge_level_hbm`) against their plain versions,
-             keys and payloads exactly equal: small shapes (duplicate-heavy
-             and full-range keys, several blocks so odd run parities occur,
-             two pairs so an odd pair's encoded output occurs, the short
-             second-to-last tile of a pair) and the shapes the 2^27 cascade
-             gives them, which the phase walks level by level: base runs,
-             kernel 6 at run 4096 and 2 levels, then 13 merge-path levels,
-             each with its planner's and its kernel's time, the first (runs
-             of 2^14) and the last (2^26) held against the plain version and
-             timed beside it; then the whole `merge_sort_pairs` and
+  kernel merge  the merge sort's kernels (6: `merge_levels_vmem`, 7: the two
+             launches of `merge_level_hbm`, the plan and the merge) against
+             their plain versions, keys and payloads exactly equal and the
+             plan kernel's table equal to the torch planner's: small shapes
+             (duplicate-heavy and full-range keys, several blocks so odd run
+             parities occur, two pairs so an odd pair's encoded output
+             occurs, the short second-to-last tile of a pair, windows 8192,
+             4096, 1024 and 256, keys in [0, 16) at 2^20 and 2^21 pairs)
+             and the shapes the 2^27 cascade gives them,
+             which the phase walks level by level: base runs, kernel 6 at run
+             4096 and 2 levels, then 13 merge-path levels, each with the plan
+             kernel's table held against the torch planner's and both timed,
+             and kernel 7's time; the first level (runs of
+             2^14) and the last (2^26) held against the plain version and
+             timed beside it at windows 8192 and 4096; then the whole
+             `merge_sort_pairs` and
              `packed_sort_pairs` at 2^27 against `torch.sort` (keys equal,
              (key, payload) multiset equal; packed element for element),
              with their times and `torch.sort` + gather beside them;
   kernel sort tiles  the tile sort (kernel 8, `benchmarks/experimental_sort.py`
              of the port) against its plain version, keys and payloads exactly
-             equal: tiles of 1024 and 2^15, several tiles, distinct keys, keys
+             equal: tiles of 1024, 2^15, 2^17, 2^20 (which reach the strided
+             passes) and 2^22 (two strided passes for its last merge), several
+             tiles, distinct keys, keys
              in [0, 16) (where the element-wise exchange of the reference
              loses payloads: the count that survives is printed, kernel and
              plain alike) and full-range keys with both extremes; then 2^27
@@ -58,7 +69,8 @@ its seconds:
              plus 1 on both sides (the same join and oracle value, no sort
              value a masking sentinel) under "merge" and "packed", best of 3
              with peak memory; under "merge" each call must launch kernel 6
-             twice and kernel 7 26 times and take the cascade twice; the
+             twice, kernel 7 26 times and its plan kernel as often, and take
+             the cascade twice; the
              unshifted relations under "merge" must launch neither and fall
              back twice (key 0 sorts as a sentinel), as the reference does;
              then config 1 with keys plus 1 under "merge": `probe_mode=
@@ -102,7 +114,9 @@ integer rate (SMs x 64 int32 lanes x the SM clock `nvidia-smi` reports;
 that computes the tile sort on distinct keys (`torch.sort` along dim 1 +
 gather); no single call computes any of the other functions, so it is null
 there; the whole merge sort has `torch.sort` + gather beside it in the kernel
-merge phase. The probe ladder is one entry: its launches are the probe
+merge phase. Kernel 7's entry also carries its plan kernel's time
+(`plan_ms`, beside the torch planner's wall time) and launches
+(`plan_launches`) and window 4096 at both levels; kernel 5's its time and bound at config 2's plan. The probe ladder is one entry: its launches are the probe
 kernels run, its times their sums, with a map per probe. Last the result line `{"ok": true, "device": {...}}`.
 Any failure raises, so the exit code is not 0 and no result line is
 printed; that includes a machine without CUDA.
@@ -395,9 +409,10 @@ def phase_build():
     for name in KERNELS:
         band_compare._kernel(name)  # loads the library and binds the symbol
     probe_ranges._kernel()
-    for name in ("merge_levels", "merge_level_hbm"):
+    for name in ("merge_levels", "merge_level_plan", "merge_level_hbm"):
         merge._kernel(name)
-    experimental_sort._kernel()
+    for name in ("chunks", "strided"):
+        experimental_sort._kernel(name)
     merge_sort_bench._kernel()
     for name in construct_probes.ENTRY_POINTS:
         construct_probes._kernel(name)
@@ -591,6 +606,17 @@ def _same_pairs(got, want, what: str) -> int:
     return err
 
 
+def _same_plan(sv, run: int, window: int, what: str) -> torch.Tensor:
+    """The plan kernel's table, equal to the torch planner's or an
+    AssertionError."""
+    meta = merge.merge_level_plan(sv, run, window)
+    want = merge.merge_level_meta(sv, run, window)
+    torch.cuda.synchronize()
+    if meta.shape != want.shape or not torch.equal(meta, want):
+        raise AssertionError(f"merge_level_plan != merge_level_meta {what}")
+    return meta
+
+
 def _packed_words(sv, pv):
     return (sv.long() << 32) | (pv.long() & 0xFFFFFFFF)
 
@@ -624,7 +650,12 @@ TILE_SHAPES = [    # kernel 7: (n, run_len, window, key lo, key hi)
     (1 << 16, 1 << 14, 8192, -2**31 + 1, 2**31 - 1),   # fourth 512 rows
     (1 << 17, 1 << 13, 8192, -1000, 1000),      # run_len == window
     (1 << 15, 1 << 12, 1024, 0, 64),            # a smaller window
+    (1 << 16, 1 << 13, 4096, 0, 64),            # two blocks a multiprocessor
+    (1 << 12, 1 << 10, 256, -5, 5),             # the least window: one warp
+    (1 << 21, 1 << 19, 8192, 0, 16),            # duplicate-heavy, long runs
+    (1 << 20, 1 << 16, 4096, 0, 16),
 ]
+WINDOWS = (merge.HBM_WINDOW, 4096)   # kernel 7 is timed at both
 
 
 def phase_kernel_merge() -> dict:
@@ -639,17 +670,19 @@ def phase_kernel_merge() -> dict:
                     f"merge_levels_vmem at {(n, run, levels)}")
     for n, run, window, lo, hi in TILE_SHAPES:
         es, ep = _encoded_runs(*_sort_inputs(gen, n, lo, hi), run)
-        meta = merge.merge_level_meta(es, run, window)
+        meta = _same_plan(es, run, window, f"at {(n, run, window)}")
         valid = (meta[3] - meta[2]) + (meta[5] - meta[4])
-        if run == 1 << 14 and int(valid.min()) != 512:
+        if (run, window) == (1 << 14, 8192) and int(valid.min()) != 512:
             raise AssertionError(f"no short tile at {(n, run, window)}")
-        _same_pairs(merge.merge_tiles(es, ep, meta, window),
-                    merge.merge_tiles_ref(es, ep, meta, window),
+        want = merge.merge_tiles_ref(es, ep, meta, window)
+        _same_pairs(merge.merge_tiles(es, ep, meta, window), want,
                     f"merge_level_hbm at {(n, run, window)}")
     print(f"[kernel merge] merge_levels_vmem equal to plain at (n, run, "
-          f"levels) in {[c[:3] for c in LEVEL_SHAPES]}; merge_level_hbm at "
-          f"(n, run, window) in {[c[:3] for c in TILE_SHAPES]}, the short "
-          f"second-to-last tile included")
+          f"levels) in {[c[:3] for c in LEVEL_SHAPES]}; merge_level_plan's "
+          f"table equal to merge_level_meta's and merge_level_hbm equal to "
+          f"plain at (n, run, window) "
+          f"in {[c[:3] for c in TILE_SHAPES]}, the short second-to-last tile "
+          f"and keys in [0, 16) at 2^20 and 2^21 pairs included")
 
     # the cascade at 2^27, level by level
     n = 1 << SORT_SCALE
@@ -668,40 +701,58 @@ def phase_kernel_merge() -> dict:
     cur = k6()
     del es, ep
     run <<= levels
-    plan_ms, tile_ms, shown = [], [], {}
+    plan_ms, plan_kernel_ms, tile_ms, shown = [], [], [], {}
     while run < n:
-        meta = merge.merge_level_meta(cur[0], run)
+        # the plan kernel's table against the torch planner's, at every level
+        meta = _same_plan(cur[0], run, merge.HBM_WINDOW,
+                          f"at 2^{SORT_SCALE}, run {run}")
         plan_ms.append(_wall_ms(lambda: merge.merge_level_meta(cur[0], run)))
+        plan_kernel_ms.append(
+            _time_ms(lambda: merge.merge_level_plan(cur[0], run), 5))
         k7 = lambda: merge.merge_tiles(*cur, meta)
         tile_ms.append(_time_ms(k7, 3))
         if run in (1 << 14, n // 2):      # the first, widest level; the last
-            k7_plain = lambda: merge.merge_tiles_ref(*cur, meta)
-            err = _same_pairs(k7(), k7_plain(),
-                              f"merge_level_hbm at 2^{SORT_SCALE}, run {run}")
-            ntiles, w = meta.shape[1], merge.HBM_WINDOW
-            stages = (2 * w).bit_length() - 1
-            shown[run] = {
-                "max_abs_err": err, "ms": tile_ms[-1],
-                "plain_ms": _time_ms(k7_plain, 1), "ntiles": ntiles,
-                # the function's work: the n valid rows through the
-                # log2(2 * window) stages, n / 2 exchanges each. The
-                # kernel's networks also carry masked junk and each pair's
-                # re-covering tile: `network_exchanges`, not in the bound
-                "network_exchanges": ntiles * stages * w,
-                **_bound(16 * n + _nbytes(meta),
-                         stages * (n // 2) * KERNEL_OPS["merge_level_hbm"])}
+            shown[run] = by_window = {}
+            for w in WINDOWS:
+                m = meta if w == merge.HBM_WINDOW else _same_plan(
+                    cur[0], run, w, f"at 2^{SORT_SCALE}, run {run}, window {w}")
+                k7w = lambda: merge.merge_tiles(*cur, m, w)
+                k7_plain = lambda: merge.merge_tiles_ref(*cur, m, w)
+                err = _same_pairs(k7w(), k7_plain(), f"merge_level_hbm at "
+                                  f"2^{SORT_SCALE}, run {run}, window {w}")
+                ntiles = m.shape[1]
+                stages = (2 * w).bit_length() - 1
+                by_window[w] = {
+                    "max_abs_err": err, "ms": _time_ms(k7w, 3),
+                    "plain_ms": _time_ms(k7_plain, 1), "ntiles": ntiles,
+                    # the function's work: the n valid rows through the
+                    # log2(2 * window) stages, n / 2 exchanges each. The
+                    # kernel's networks also carry masked junk and each
+                    # pair's re-covering tile: `network_exchanges`, not in
+                    # the bound
+                    "network_exchanges": ntiles * stages * w,
+                    **_bound(16 * n + _nbytes(m),
+                             stages * (n // 2) * KERNEL_OPS["merge_level_hbm"])}
+                del m
         cur = k7()
         run <<= 1
     _check_sorted_pairs(cur, sv, pv, "the cascade, level by level")
     del cur, meta
-    first, last = shown[1 << 14], shown[n // 2]
-    # the row's required keys are the first level's (run 2^14); the last
-    # level's and the sums over all levels of one sort stand beside them
+    first, last = (shown[r][merge.HBM_WINDOW] for r in (1 << 14, n // 2))
+    # the row's required keys are the first level's (run 2^14) at the default
+    # window; the last level's, window 4096 at both, the plan kernel and the
+    # sums over all levels of one sort stand beside them
     stats["merge_level_hbm"] = {
         **first,
-        "max_abs_err": max(first["max_abs_err"], last["max_abs_err"]),
-        "last_level": last, "levels": len(tile_ms),
-        "levels_ms": sum(tile_ms), "levels_planner_wall_ms": sum(plan_ms)}
+        "max_abs_err": max(c["max_abs_err"] for by in shown.values()
+                           for c in by.values()),
+        "last_level": last,
+        "window_4096": {"first_level": shown[1 << 14][4096],
+                        "last_level": shown[n // 2][4096]},
+        "levels": len(tile_ms), "levels_ms": sum(tile_ms),
+        "levels_planner_wall_ms": sum(plan_ms),
+        "levels_plan_kernel_ms": sum(plan_kernel_ms),
+        "plan_ms": plan_kernel_ms[0], "plan_torch_wall_ms": plan_ms[0]}
     k6s = stats["merge_levels_vmem"]
     print(f"[kernel merge] 2^{SORT_SCALE} cascade: base runs {base_ms:.3f} "
           f"ms; merge_levels_vmem (run 4096, 2 levels) {k6s['ms']:.4f} ms, "
@@ -712,9 +763,18 @@ def phase_kernel_merge() -> dict:
           f"2^{SORT_SCALE - 1} ({last['ntiles']} tiles) {last['ms']:.4f} ms, "
           f"plain {last['plain_ms']:.3f} ms, bound {last['bound_ms']:.4f} ms "
           f"by {last['bound_by']}; all equal to plain; {len(tile_ms)} levels: kernel "
-          f"{sum(tile_ms):.3f} ms ({', '.join(f'{t:.3f}' for t in tile_ms)}), "
-          f"planner {sum(plan_ms):.3f} ms wall "
-          f"({', '.join(f'{t:.3f}' for t in plan_ms)})")
+          f"{sum(tile_ms):.3f} ms ({', '.join(f'{t:.3f}' for t in tile_ms)}); "
+          f"the plan kernel "
+          f"{sum(plan_kernel_ms):.4f} ms "
+          f"({', '.join(f'{t:.4f}' for t in plan_kernel_ms)}), its table equal "
+          f"to the torch planner's at every level, which takes "
+          f"{sum(plan_ms):.3f} ms wall "
+          f"({', '.join(f'{t:.3f}' for t in plan_ms)}); window 4096 (equal to "
+          f"plain) at run 2^14 / 2^{SORT_SCALE - 1}: "
+          + " / ".join(
+              f"{shown[r][4096]['ms']:.4f} ms ({shown[r][4096]['ntiles']} "
+              f"tiles)" for r in (1 << 14, n // 2))
+          + f", beside {first['ms']:.4f} / {last['ms']:.4f} at 8192")
 
     # the whole sorts
     merge.reset_launches()
@@ -757,6 +817,9 @@ def _tile_keys(gen, kind: str, n: int) -> torch.Tensor:
 SORT_TILE_SHAPES = [   # (tile, tiles, keys)
     (1024, 5, "distinct"), (1024, 3, "dup16"), (1024, 7, "full"),
     (1 << 15, 4, "distinct"), (1 << 15, 2, "dup16"), (1 << 15, 3, "full"),
+    # tiles that reach the strided passes; 2^22: two passes for its last merge
+    (1 << 17, 3, "dup16"), (1 << 17, 2, "full"),
+    (1 << 20, 2, "dup16"), (1 << 20, 1, "full"), (1 << 22, 1, "distinct"),
 ]
 
 
@@ -812,13 +875,21 @@ def phase_kernel_sort_tiles() -> tuple:
     stats = {"max_abs_err": err, "ms": _time_ms(kernel, 3),
              "plain_ms": _time_ms(plain, 1),
              **_bound(16 * n, stages * (n // 2) * KERNEL_OPS["sort_tiles"]),
-             "library_ms": _time_ms(library, 3), "stages": stages}
+             "library_ms": _time_ms(library, 3), "stages": stages,
+             # where the time goes: one launch (tile 2^14), then the first
+             # merge that takes a strided pass and a chunk pass besides
+             "by_tile_ms": {t: _time_ms(lambda: es.sort_tiles(sv, pay, t), 3)
+                            for t in (1 << 14, 1 << 15) if t < tile}}
     print(f"[kernel sort tiles] n = 2^{lg}, tile {tile} ({stages} stages), "
           f"distinct keys: kernel {stats['ms']:.4f} ms "
           f"({n / stats['ms'] / 1e3:.1f} Melem/s), plain "
           f"{stats['plain_ms']:.3f} ms, torch.sort of [{n // tile}, {tile}] "
           f"along dim 1 + gather {stats['library_ms']:.4f} ms, bound "
-          f"{stats['bound_ms']:.4f} ms by {stats['bound_by']}; all three equal")
+          f"{stats['bound_ms']:.4f} ms by {stats['bound_by']}; all three equal; "
+          f"the same pairs by tile: "
+          + ", ".join(f"{t}: {ms:.4f} ms ({len(es.launch_schedule(t.bit_length() - 1))}"
+                      f" launches)" for t, ms in stats["by_tile_ms"].items())
+          + f", {tile}: {len(es.launch_schedule(tile.bit_length() - 1))} launches")
     return stats, launches["sort_tiles"]
 
 
@@ -935,8 +1006,8 @@ def phase_sort_tools():
                  "merge_level_hbm")
         if not (check["keys_ok"] and check["pairs_ok"] and check["cascade"]):
             raise AssertionError(f"merge_fix_validate at 2^{lg}: {check}")
-    # `bench_full` times whole calls, which the planner's launches on the
-    # host bound; the merge-path kernel alone, by window, at the first level
+    # `bench_full` times whole calls; the merge-path kernel alone, by window,
+    # at the first level
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 7)
     n, run = 1 << TOOLS_SCALE, merge.DEVICE_VMEM_TILE
@@ -945,7 +1016,7 @@ def phase_sort_tools():
     for name, geometry in msb.FULL_VARIANTS:
         window = geometry.get("hbm_window", merge.HBM_WINDOW)
         if f"{name}_ms" in full:
-            meta = merge.merge_level_meta(es, run, window)
+            meta = merge.merge_level_plan(es, run, window)
             alone[window] = (_time_ms(
                 lambda: merge.merge_tiles(es, ep, meta, window), 10),
                 meta.shape[1])
@@ -1037,6 +1108,10 @@ def _expect_cascade(launches: dict, path: str, levels_launches: int,
                     tile_launches: int, sorts: int):
     got = (launches["merge_levels_vmem"], launches["merge_level_hbm"],
            dict(merge.ROUTES))
+    if launches["merge_level_plan"] != launches["merge_level_hbm"]:
+        raise AssertionError(f"{path}: {launches['merge_level_plan']} plans "
+                             f"for {launches['merge_level_hbm']} merge-path "
+                             f"levels")
     want = (levels_launches, tile_launches,
             {"cascade": sorts if levels_launches else 0,
              "fallback": 0 if levels_launches else sorts})
@@ -1060,7 +1135,8 @@ def phase_sorts(big) -> dict:
         torch.cuda.reset_peak_memory_stats()
         res, launches = _launched(lambda: engine.aggregate(r, s))
         if impl == "merge":
-            # two sorts: kernel 6 once, kernel 7 on 13 levels each
+            # two sorts: kernel 6 once, the plan kernel and kernel 7 on 13
+            # levels each
             _expect_cascade(launches, "2^27 merge", 2, 26, 2)
             head, routes = launches, dict(merge.ROUTES)
         _require(launches, f"2^27 {impl}", "banded_compare_sum")
@@ -1300,7 +1376,7 @@ def _partitioned_zipf(lines: list):
 def _partitioned_config2(lines: list, big) -> tuple:
     """"pallas" at 18 bits and "sort_merge" on the headline's 2^27
     relations (payloads 1); returns the "pallas" launches and kernel 5's
-    time at that plan."""
+    time and bound at that plan."""
     _, _, r_keys, s_keys = big
     ones = torch.ones_like(r_keys)
     r, s = Relation(r_keys, ones), Relation(s_keys, ones)
@@ -1319,12 +1395,16 @@ def _partitioned_config2(lines: list, big) -> tuple:
     items, compares = _range_work(cols, s_start, s_nch, RANGE_TILE, RANGE_TILE)
     k_ms = _time_ms(lambda: probe_ranges.probe_aggregate_ranges(
         *cols, s_start, s_nch, tile_r=RANGE_TILE, tile_s=RANGE_TILE), 10)
+    # the four columns read once, and the scalar written
+    bound = _bound(_nbytes(*cols) + 4,
+                   compares * KERNEL_OPS["probe_aggregate_ranges"])
     del cols
     lines.append(f"pallas config 2, 2^{HEADLINE_SCALE} per side at "
                  f"{CONFIG2_BITS} bits = {agg} (oracle), best of {REPS} "
                  f"{t_c2 * 1e3:.3f} ms, peak {peak / 2**30:.2f} GiB, {items} "
                  f"items, {compares:.3e} compares, kernel alone {k_ms:.4f} ms "
-                 f"({compares / k_ms / 1e9:.3f} T compares/s), launches "
+                 f"({compares / k_ms / 1e9:.3f} T compares/s), bound "
+                 f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}, launches "
                  f"{launches}")
 
     sm = ClusteredJoin(EngineConfig(probe_mode="sort_merge"), device=DEVICE)
@@ -1333,18 +1413,21 @@ def _partitioned_config2(lines: list, big) -> tuple:
         raise AssertionError(f"sort_merge 2^{HEADLINE_SCALE}: {agg} != {want}")
     lines.append(f"sort_merge 2^{HEADLINE_SCALE} = oracle, best of {REPS} "
                  f"{t_sm * 1e3:.3f} ms")
-    return launches, k_ms
+    return launches, {"config2_ms": k_ms,
+                      "config2_bound_ms": bound["bound_ms"],
+                      "config2_bound_by": bound["bound_by"]}
 
 
 def phase_partitioned(big) -> tuple:
     """The radix-partitioned modes. Returns (the launch counts of the
-    config-2 "pallas" aggregate, kernel 5's time at config 2's plan)."""
+    config-2 "pallas" aggregate, kernel 5's time and bound at config 2's
+    plan)."""
     lines = []
     _partitioned_config1(lines)
     _partitioned_zipf(lines)
-    launches, k_ms = _partitioned_config2(lines, big)
+    launches, at_config2 = _partitioned_config2(lines, big)
     print("[partitioned] " + "; ".join(lines))
-    return launches, k_ms
+    return launches, at_config2
 
 
 def phase_late():
@@ -1453,7 +1536,55 @@ def _timed(name, fn, *args):
     return out
 
 
-def main():
+PHASES = ("kernel", "kernel ranges", "kernel merge", "kernel sort tiles",
+          "kernel stage", "probes", "sort tools", "mid", "headline", "sorts",
+          "materialize", "partitioned", "late", "pipeline")
+# phases that join the headline's 2^27 relations, which `headline` makes
+NEED_HEADLINE = ("sorts", "materialize", "partitioned")
+
+
+def _partial(names) -> int:
+    """`report`, `build` and the named phases, each whole: no size,
+    repetition or check is cut. Prints no `kernels` line and no result
+    line, only which phases ran."""
+    unknown = [name for name in names if name not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; the phases "
+                         f"are {', '.join(PHASES)}")
+    _timed("report", phase_report)
+    _timed("build", phase_build)
+    alone = {"kernel": phase_kernel, "kernel ranges": phase_kernel_ranges,
+             "kernel merge": phase_kernel_merge,
+             "kernel sort tiles": phase_kernel_sort_tiles,
+             "kernel stage": phase_kernel_stage, "probes": phase_probes,
+             "sort tools": phase_sort_tools, "mid": phase_mid,
+             "late": phase_late, "pipeline": phase_pipeline}
+    with_big = {"sorts": phase_sorts, "materialize": phase_materialize,
+                "partitioned": phase_partitioned}
+    big = None
+    ran = []
+    for name in PHASES:
+        if name in names or (name == "headline"
+                             and any(n in names for n in NEED_HEADLINE)):
+            if name == "headline":
+                _, big = _timed(name, phase_headline)
+            elif name in with_big:
+                _timed(name, with_big[name], big)
+            else:
+                _timed(name, alone[name])
+            torch.cuda.empty_cache()
+            ran.append(name)
+    print(f"chip_smoke: ran only the phases {', '.join(ran)}; a run of all "
+          f"phases prints the kernels line and the result line")
+    return 0
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            raise SystemExit("usage: chip_smoke.py [--phases 'a,b']")
+        return _partial([name.strip() for name in argv[1].split(",")])
     kind = _timed("report", phase_report)
     _timed("build", phase_build)
     kstats = _timed("kernel", phase_kernel)
@@ -1472,8 +1603,8 @@ def main():
     head, big = _timed("headline", phase_headline)
     sorts = _timed("sorts", phase_sorts, big)
     fast, ring = _timed("materialize", phase_materialize, big)
-    part, c2_ms = _timed("partitioned", phase_partitioned, big)
-    kstats["probe_aggregate_ranges"]["config2_ms"] = c2_ms
+    part, at_config2 = _timed("partitioned", phase_partitioned, big)
+    kstats["probe_aggregate_ranges"].update(at_config2)
     del big
     torch.cuda.empty_cache()
     _timed("late", phase_late)
@@ -1489,14 +1620,20 @@ def main():
                 "probe_aggregate_ranges": part["probe_aggregate_ranges"],
                 "merge_levels_vmem": sorts["merge_levels_vmem"],
                 "merge_level_hbm": sorts["merge_level_hbm"], **tools}
+    # kernel 7 is two launches a level: its plan kernel's count beside it
+    kstats["merge_level_hbm"]["plan_launches"] = sorts["merge_level_plan"]
+    # the two kernels with the longest records of levels and windows come
+    # last, so that the end of a cut log still carries them whole
+    order = sorted(ROUTES, key=lambda name: name in ("merge_level_hbm",
+                                                     "sort_tiles"))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": source,
-        "replaces": replaces,
+        "source": ROUTES[name][0],
+        "replaces": ROUTES[name][1],
         "launches": launches[name],
         **kstats[name],
-    } for name, (source, replaces) in ROUTES.items()]}))
+    } for name in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

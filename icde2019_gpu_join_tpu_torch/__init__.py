@@ -3,9 +3,11 @@ NVIDIA H100.
 
 Same module names as the JAX package; plain functions on int32 tensors, an
 explicit device on `Relation` and `ClusteredJoin`, seeds passed to the
-generators. Imports torch and numpy, never JAX. The kernels (the banded
-probe's compare/select kernels and the stream-range probe) are CUDA C++
-(`csrc/`), built with nvcc at first use.
+generators. Imports torch and numpy, never JAX. The ten kernels (the banded
+probe's four compare/select kernels, the stream-range probe, the merge
+sort's in-block and merge-path levels with their planner, and the sort
+tools' tile sort, stage meter and construct probes) are CUDA C++ (`csrc/`),
+built with nvcc at first use.
 """
 
 from icde2019_gpu_join_tpu_torch.config import RadixConfig, EngineConfig

@@ -1,7 +1,8 @@
 """Full bitonic sort of every tile of (sortval, payload) pairs.
 
 Counterpart of `benchmarks/experimental_sort_pallas.py` (`sort_tiles`); its
-CUDA kernel is `csrc/sort_tiles.cu` (`tj_sort_tiles`). Experimental: it is
+CUDA kernels are in `csrc/sort_tiles.cu` (`tj_sort_chunks`,
+`tj_sort_strided`). Experimental: it is
 not on any path of the engine. It is the instrument for the question whether
 a sort written by hand can beat `torch.sort` along a tile; `chip_smoke.py`
 times both.
@@ -23,7 +24,14 @@ exactly that, so that both equal the reference on every input. The merge
 kernels' exchange (`ops/merge.py`, `_cx`) swaps a pair as one and does not
 have this.
 
-On CUDA tensors `sort_tiles` launches its kernel (built with nvcc at first
+On the card a thread block holds at most 2^14 pairs, so the network is cut
+into launches: `launch_schedule` lists them for a tile size, and
+`strided_block_elements` is the map of a strided pass from a block's local
+index to the tile. Both are plain Python and what the CPU tests hold against
+the network. The schedule exists here only: `sort_tiles` walks it and calls
+one C entry point per launch, so what the tests hold is what the card runs.
+
+On CUDA tensors `sort_tiles` launches its kernels (built with nvcc at first
 use) or raises; on CPU tensors it runs the plain version. `LAUNCHES` counts
 the calls that launched.
 """
@@ -32,15 +40,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, List, NamedTuple, Tuple
+
+import numpy as np
 
 import torch
 
 from icde2019_gpu_join_tpu_torch.ops import _build
-from icde2019_gpu_join_tpu_torch.ops.merge import _check_pairs, _is_pow2
+from icde2019_gpu_join_tpu_torch.ops.merge import (_check_aligned,
+                                                   _check_pairs, _is_pow2)
 
 DEFAULT_TILE = 1 << 20
 MIN_TILE = 1024
+
+LOG_BLOCK = 14           # log2 of the most pairs one thread block holds
+LOG_PASS = 13            # log2 of a block's pairs in a pass of a merge k > 14
+MAX_STRIDED_BITS = 7     # stage bits of one strided pass: segments >= 128
 
 # Calls of `sort_tiles` that launched the kernel since the last reset.
 LAUNCHES: Dict[str, int] = {"sort_tiles": 0}
@@ -96,11 +111,69 @@ def sort_tiles_ref(sv: torch.Tensor, pay: torch.Tensor,
     return sv, pay
 
 
+class Launch(NamedTuple):
+    """One kernel launch of the tile sort on the card: for every merge k in
+    [k_lo, k_hi], the stages at index bits min(k - 1, bit_hi) .. bit_lo, by
+    blocks of 2^log_block pairs. kind "chunks": a block holds a chunk of
+    neighbours (bit_hi = log_block - 1, bit_lo = 0); kind "strided": a block
+    holds the pairs that agree outside the stage bits
+    (`strided_block_elements`)."""
+    kind: str
+    k_lo: int
+    k_hi: int
+    bit_hi: int
+    bit_lo: int
+    log_block: int
+
+    def stages(self) -> List[Tuple[int, int]]:
+        """The (k, j) stages the launch runs, in order."""
+        return [(k, j) for k in range(self.k_lo, self.k_hi + 1)
+                for j in range(min(k - 1, self.bit_hi), self.bit_lo - 1, -1)]
+
+
+def launch_schedule(log_tile: int) -> List[Launch]:
+    """The launches that sort tiles of 2^log_tile pairs: the merges that fit
+    a chunk of 2^LOG_BLOCK in one launch; then for each longer merge k its
+    stages at bits >= LOG_PASS in strided passes of at most
+    MAX_STRIDED_BITS bits over blocks of 2^LOG_BLOCK, and the rest in one
+    pass over chunks of 2^LOG_PASS (two such blocks share a multiprocessor,
+    so one's loads run under the other's stages)."""
+    log_chunk = min(log_tile, LOG_BLOCK)
+    launches = [Launch("chunks", 1, log_chunk, log_chunk - 1, 0, log_chunk)]
+    for k in range(log_chunk + 1, log_tile + 1):
+        hi = k - 1
+        while hi >= LOG_PASS:
+            bits = min(hi - LOG_PASS + 1, MAX_STRIDED_BITS)
+            launches.append(Launch("strided", k, k, hi, hi - bits + 1,
+                                   LOG_BLOCK))
+            hi -= bits
+        launches.append(Launch("chunks", k, k, LOG_PASS - 1, 0, LOG_PASS))
+    return launches
+
+
+def strided_block_elements(block: int, bit_hi: int, bit_lo: int) -> np.ndarray:
+    """The flat indices of the 2^LOG_BLOCK pairs that block `block` of a
+    strided pass over index bits bit_hi .. bit_lo holds, by local index:
+    local = segment << seg_log | offset, the segment spells the stage bits,
+    the block's number the bits between the segment's offset and bit_lo and
+    those above bit_hi."""
+    bits = bit_hi - bit_lo + 1
+    seg_log = LOG_BLOCK - bits
+    low = block & ((1 << (bit_lo - seg_log)) - 1)
+    base = (low << seg_log) | ((block >> (bit_lo - seg_log)) << (bit_hi + 1))
+    local = np.arange(1 << LOG_BLOCK, dtype=np.int64)
+    return (base | (local & ((1 << seg_log) - 1))
+            | ((local >> seg_log) << bit_lo))
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.kernel_lib().tj_sort_tiles
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
-                                           ctypes.c_void_p]
+def _kernel(kind: str):
+    """The C entry point of one launch kind, bound with its argument
+    types."""
+    fn = getattr(_build.kernel_lib(), f"tj_sort_{kind}")
+    pointers, sizes = {"chunks": (4, 5), "strided": (2, 6)}[kind]
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int64] * sizes
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -111,6 +184,9 @@ def sort_tiles(sv: torch.Tensor, pay: torch.Tensor,
     """Sort each tile of tile_elems pairs of (sv, pay) by sv ascending
     (signed int32), tiles independently. n must be a multiple of tile_elems,
     a power of two of at least 1024. Equal keys: see the module docstring.
+    On the card the first launch of `launch_schedule` reads the inputs and
+    the others work in place on the outputs; the kernels load 16-byte
+    vectors, so `sv` and `pay` must start on a 16-byte boundary there.
 
     `unroll` chose, on the TPU, between a stage loop and a statically
     unrolled network that compute the same arrays; there is one kernel
@@ -119,12 +195,25 @@ def sort_tiles(sv: torch.Tensor, pay: torch.Tensor,
     _check(sv, pay, tile_elems)
     if not sv.is_cuda:
         return sort_tiles_ref(sv, pay, tile_elems)
+    _check_aligned(("sv", sv), ("pay", pay))
+    n, log_tile = sv.shape[0], tile_elems.bit_length() - 1
     osv, opay = torch.empty_like(sv), torch.empty_like(pay)
+    out = (osv.data_ptr(), opay.data_ptr())
+    src = (sv.data_ptr(), pay.data_ptr())
     with torch.cuda.device(sv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(sv.data_ptr(), pay.data_ptr(), osv.data_ptr(),
-                        opay.data_ptr(), sv.shape[0], tile_elems, stream)
-    if err != 0:
-        raise RuntimeError(f"tj_sort_tiles launch failed: CUDA error {err}")
+        for launch in launch_schedule(log_tile):
+            if launch.kind == "chunks":
+                err = _kernel("chunks")(*src, *out, n, log_tile,
+                                        launch.log_block, launch.k_lo,
+                                        launch.k_hi, stream)
+            else:
+                err = _kernel("strided")(
+                    *out, n, log_tile, launch.log_block, launch.bit_lo,
+                    launch.bit_hi - launch.bit_lo + 1, launch.k_lo, stream)
+            if err != 0:
+                raise RuntimeError(f"tj_sort_{launch.kind} launch failed at "
+                                   f"{launch}: CUDA error {err}")
+            src = out
     LAUNCHES["sort_tiles"] += 1
     return osv, opay

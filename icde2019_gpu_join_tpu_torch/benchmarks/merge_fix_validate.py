@@ -9,7 +9,10 @@ merge-path kernel (`ops/merge.py`). Two steps, one JSON line each:
      multiset equal. Keys lie in (INT32_MIN, INT32_MAX), so that no sort
      value is a masking sentinel and the cascade runs, not the fallback;
   2. timing: the best of 5 calls of both after a warm-up, by CUDA events on
-     the card (`utils/timing.best_ms`).
+     the card (`utils/timing.best_ms`). The cascade's time there is its
+     kernels': the base-run sort, one in-block launch and two launches (plan
+     and merge) a merge-path level, with one host read before them, the
+     sentinel check.
 
 Usage: python -m icde2019_gpu_join_tpu_torch.benchmarks.merge_fix_validate
            [log2n] [--device cpu]

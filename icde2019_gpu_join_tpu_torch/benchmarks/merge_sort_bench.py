@@ -27,7 +27,11 @@ the cheapest first:
            both what a block holds (2 windows of at most 2^13 pairs) and the
            runs of 2^14 the in-block levels hand over: the line carries the
            `ValueError` (`merge_w32k_error`). `merge_w4k` and `merge_w2k`
-           are the windows below the default, which do fit.
+           are the windows below the default, which do fit. On the card a
+           cascade is device work from end to end (each merge-path level
+           is two launches, the plan kernel and the merge, and the host
+           reads nothing between them), so a variant's time is its
+           kernels' and the windows can be compared here.
 
 Every time is the best of several calls after a warm-up, by CUDA events on
 the card and by the host clock on the CPU (`utils/timing.best_ms`).

@@ -82,7 +82,8 @@ class EngineConfig:
     probe_placement: str = "hbm"
     out_capacity: int = 1 << 24
     resident_limit_rows: int = 128_000_001
-    # None or "lax" (torch.sort); the merge/packed sorts are not ported yet.
+    # None or "lax" (torch.sort), "merge" (the merge-tree cascade) or
+    # "packed" (one sort of packed words): `ops.band_join.sort_pairs`.
     sort_impl: Optional[str] = None
 
     @classmethod

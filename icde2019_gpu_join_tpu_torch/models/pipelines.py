@@ -23,7 +23,7 @@ the group-by sums (h, t) per group exactly mod 2^32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,7 +62,8 @@ def _groupby_sums2_exact(gids: torch.Tensor, vals1: torch.Tensor,
 
 
 def _fpg_segment(r_sv, r_p, s_keys, s_filter_col, s_group_id, lo, hi,
-                 num_groups: int, window_blocks: int, sort_impl: str):
+                 num_groups: int, window_blocks: int,
+                 sort_impl: Optional[str]):
     """Filter -> probe -> group-by of one probe-side segment against sorted
     R: the segment's per-group (COUNT, SUM) partials."""
     keep = (s_filter_col >= lo) & (s_filter_col < hi)
@@ -78,7 +79,7 @@ def _fpg_segment(r_sv, r_p, s_keys, s_filter_col, s_group_id, lo, hi,
 
 def filter_probe_groupby(r_keys, r_pay, s_keys, s_filter_col, s_group_id,
                          lo, hi, num_groups: int, window_blocks: int = 1,
-                         sort_impl: str = "lax"
+                         sort_impl: Optional[str] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (per-group match COUNT, per-group SUM(r_pay)), int32 [G]
     tensors with wraparound. Non-matching / filtered-out rows contribute
@@ -91,7 +92,7 @@ def filter_probe_groupby(r_keys, r_pay, s_keys, s_filter_col, s_group_id,
 def filter_probe_groupby_streamed(r_keys, r_pay, s_keys, s_filter_col,
                                   s_group_id, lo, hi, num_groups: int,
                                   segments: int, window_blocks: int = 1,
-                                  sort_impl: str = "lax"
+                                  sort_impl: Optional[str] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """filter_probe_groupby with the probe side in `segments` equal slices,
     R sorted once: each segment's temporaries are 1/segments of the fused

@@ -69,26 +69,37 @@ def _pad_sorted_input(keys: torch.Tensor, pay: torch.Tensor):
 SORT_IMPLS = ("lax", "merge", "packed")
 
 
-def sort_pairs(sv: torch.Tensor, pay: torch.Tensor, sort_impl: str = "lax"):
+def resolve_sort_impl(sort_impl: Optional[str]) -> str:
+    """The name of the sort a call runs: None is "lax", as in the reference,
+    whose default every function below shares; an unknown name raises.
+    There is no process-wide default and no environment variable."""
+    impl = "lax" if sort_impl is None else sort_impl
+    if impl not in SORT_IMPLS:
+        raise ValueError(f"unknown sort_impl {sort_impl!r}")
+    return impl
+
+
+def sort_pairs(sv: torch.Tensor, pay: torch.Tensor,
+               sort_impl: Optional[str] = None):
     """The engine's hot (sortval, payload) sort: signed int32 ascending,
     unstable. All three implementations agree on the key order and on the
     per-key payload multiset; the payload order among equal keys is
     unspecified.
 
-    sort_impl (`EngineConfig.sort_impl`; there is no process-wide default):
+    sort_impl (`EngineConfig.sort_impl`; `resolve_sort_impl`): None or
     "lax", the config's name for the library sort, here `torch.sort` and a
     payload gather; "merge", the merge-tree cascade of ops/merge.py; "packed",
     one sort of (sortval << 32 | payload) words."""
-    if sort_impl == "lax":
-        return torch_sort_pairs(sv, pay)
-    if sort_impl == "merge":
+    impl = resolve_sort_impl(sort_impl)
+    if impl == "merge":
         return merge_sort_pairs(sv, pay)
-    if sort_impl == "packed":
+    if impl == "packed":
         return packed_sort_pairs(sv, pay)
-    raise ValueError(f"unknown sort_impl {sort_impl!r}")
+    return torch_sort_pairs(sv, pay)
 
 
-def sort_by_key(keys: torch.Tensor, pay: torch.Tensor, sort_impl: str = "lax"):
+def sort_by_key(keys: torch.Tensor, pay: torch.Tensor,
+                sort_impl: Optional[str] = None):
     """Sort (keys, pay) by uint32 key order; returns 128-padded tensors of
     (sortval, payload)."""
     keys, pay = _pad_sorted_input(keys, pay)
@@ -399,7 +410,7 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
                        s_keys: torch.Tensor, s_pay: torch.Tensor,
                        capacity: int, window_blocks: int = 1,
                        wrap: bool = True, debug_force: Optional[str] = None,
-                       sort_impl: str = "lax"):
+                       sort_impl: Optional[str] = None):
     """Materialize matched (Pr, Ps) pairs into `capacity`-sized buffers.
 
     Returns (out_r, out_s, total): two int32 [capacity] tensors and the
@@ -447,7 +458,7 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
 def banded_join_aggregate(r_keys: torch.Tensor, r_pay: torch.Tensor,
                           s_keys: torch.Tensor, s_pay: torch.Tensor,
                           window_blocks: int = 1,
-                          sort_impl: str = "lax") -> torch.Tensor:
+                          sort_impl: Optional[str] = None) -> torch.Tensor:
     """Sort both sides, then the banded probe: SUM(Pr*Ps) over key matches,
     int32 wraparound, as a 0-d int32 tensor."""
     r_sv, r_p = sort_by_key(r_keys, r_pay, sort_impl)
@@ -458,7 +469,7 @@ def banded_join_aggregate(r_keys: torch.Tensor, r_pay: torch.Tensor,
 def banded_join_late_aggregate(r_keys: torch.Tensor, r_colsum: torch.Tensor,
                                s_keys: torch.Tensor, s_colsum: torch.Tensor,
                                window_blocks: int = 1,
-                               sort_impl: str = "lax") -> torch.Tensor:
+                               sort_impl: Optional[str] = None) -> torch.Tensor:
     """Late-materialization aggregate: SUM over matches of (Rcolsum +
     Scolsum), int32 wraparound (join_partitioned_varpayload analog,
     src/join-primitives.cu:1420-1557). Requires keys != -1 (sentinel)."""
@@ -469,7 +480,7 @@ def banded_join_late_aggregate(r_keys: torch.Tensor, r_colsum: torch.Tensor,
 
 def banded_join_count(r_keys: torch.Tensor, s_keys: torch.Tensor,
                       window_blocks: int = 1,
-                      sort_impl: str = "lax") -> torch.Tensor:
+                      sort_impl: Optional[str] = None) -> torch.Tensor:
     """Match count (int32 wraparound; exact when < 2^31), computed as
     SUM(1*1) so the sentinel pad rows (payload 0) count nothing."""
     return banded_join_aggregate(r_keys, torch.ones_like(r_keys),

@@ -1,7 +1,7 @@
 """Merge-tree sort of (sortval, payload) pairs, and the packed one-operand
 sort: the engine's sort alternates (`sort_impl="merge"` / `"packed"`).
 
-Counterpart of `icde2019_gpu_join_tpu/ops/merge_pallas.py`; its two CUDA
+Counterpart of `icde2019_gpu_join_tpu/ops/merge_pallas.py`; its three CUDA
 kernels are in `csrc/merge.cu`. The cascade:
 
   1. base runs:  `encode_base_runs`, one segmented `torch.sort` into runs of
@@ -9,12 +9,15 @@ kernels are in `csrc/merge.cu`. The cascade:
                  its compiler's library sort too);
   2. `merge_levels_vmem` (kernel `tj_merge_levels`): each thread block holds
      one output run in shared memory and merges `levels` levels there;
-  3. `merge_level_hbm` (kernel `tj_merge_level_hbm`): runs too long for
-     shared memory merge by merge-path planning: `_merge_path_splits` finds
-     the exact diagonal split of every output tile (a vectorised binary
-     search, in torch), the kernel copies the two 128-aligned windows, masks
-     the rows off the diagonal to -inf / +inf sentinels, runs one bitonic
-     merge of 2 * window elements and writes the valid rows.
+  3. `merge_level_hbm`: runs too long for a block merge by merge-path
+     planning, two launches a level on the card with no host work between
+     them. `merge_level_plan` (kernel `tj_merge_level_plan`, a thread an
+     output tile) finds the exact diagonal split of every tile and writes
+     the plan table; `merge_tiles` (kernel `tj_merge_level_hbm`) loads the
+     two 128-aligned windows, masks the rows off the diagonal to -inf / +inf
+     sentinels, runs one bitonic merge of 2 * window elements in registers
+     and writes the valid rows. `merge_level_meta` (a vectorised binary
+     search in torch) is the planner's plain version.
 
 DIRECTION ENCODING (kept from the reference, so that every level can be held
 against it element for element): run r of the cascade is stored sorted
@@ -39,10 +42,10 @@ The engine sorts sign-flipped keys: key 0 becomes INT32_MIN and the pad key
 -1 INT32_MAX, so a relation that holds key 0 or needs padding takes the
 fallback. `ROUTES` counts which way each call went.
 
-On CUDA tensors `merge_levels_vmem` and `merge_tiles` (the kernel step of
-`merge_level_hbm`) launch their kernels (built with nvcc at first use) or
-raise; on CPU tensors they run the plain versions (`*_ref`). `LAUNCHES`
-counts kernel launches per kernel.
+On CUDA tensors `merge_levels_vmem`, `merge_level_plan` and `merge_tiles`
+(the two steps of `merge_level_hbm`) launch their kernels (built with nvcc
+at first use) or raise; on CPU tensors they run the plain versions (`*_ref`,
+`merge_level_meta`). `LAUNCHES` counts kernel launches per kernel.
 """
 
 from __future__ import annotations
@@ -75,7 +78,8 @@ CASCADE_MAX_N = 1 << 27
 MAX_BLOCK_ELEMS = 1 << 14
 
 # Kernel launches since the last reset, by kernel; only the CUDA path adds.
-LAUNCHES: Dict[str, int] = {"merge_levels_vmem": 0, "merge_level_hbm": 0}
+LAUNCHES: Dict[str, int] = {"merge_levels_vmem": 0, "merge_level_plan": 0,
+                            "merge_level_hbm": 0}
 # Calls of `merge_sort_pairs` since the last reset, by the way they went.
 ROUTES: Dict[str, int] = {"cascade": 0, "fallback": 0}
 
@@ -105,6 +109,19 @@ def _check_pairs(sv: torch.Tensor, pv: torch.Tensor):
                          f"{tuple(pv.shape)} on {pv.device} differ")
     if sv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {sv.device}")
+
+
+def _check_aligned(*named: Tuple[str, torch.Tensor]):
+    """The kernels that load 16-byte vectors need their arrays to start on a
+    16-byte boundary."""
+    for name, x in named:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel loads 16-byte vectors and "
+                             f"needs a tensor that starts on a 16-byte "
+                             f"boundary, got an offset of {x.data_ptr() % 16} "
+                             f"bytes (a view that starts at row "
+                             f"{x.storage_offset()} of its storage); pass a "
+                             f"whole tensor or a .clone()")
 
 
 # ---------------------------------------------------------------------------
@@ -195,9 +212,10 @@ def merge_levels_vmem_ref(sv: torch.Tensor, pv: torch.Tensor, run_len: int,
 def _kernel(name: str):
     """The C entry point `tj_<name>`, bound with its argument types."""
     fn = getattr(_build.kernel_lib(), f"tj_{name}")
-    pointers = {"merge_levels": 4, "merge_level_hbm": 5}[name]
-    fn.argtypes = [ctypes.c_void_p] * pointers + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    pointers, sizes = {"merge_levels": (4, 3), "merge_level_plan": (2, 4),
+                       "merge_level_hbm": (5, 3)}[name]
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int64] * sizes
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -341,6 +359,28 @@ def merge_level_meta(sv: torch.Tensor, run_len: int,
     ])
 
 
+def level_tiles(n: int, run_len: int, window: int = HBM_WINDOW) -> int:
+    """Output tiles of one merge-path level: the plan's columns."""
+    pair = 2 * run_len
+    return n // pair * -(-pair // (window - 128))
+
+
+def merge_level_plan(sv: torch.Tensor, run_len: int,
+                     window: int = HBM_WINDOW) -> torch.Tensor:
+    """The merge-path plan of one level, the table of `merge_level_meta`.
+    On the card one launch of `tj_merge_level_plan` (a thread an output
+    tile, all searches side by side, nothing read back by the host); on CPU
+    tensors `merge_level_meta`, its plain version."""
+    _check_level(sv, sv, run_len, window)
+    if not sv.is_cuda:
+        return merge_level_meta(sv, run_len, window)
+    ntiles = level_tiles(sv.shape[0], run_len, window)
+    meta = torch.empty((7, ntiles), dtype=torch.int32, device=sv.device)
+    _launch("merge_level_plan", "merge_level_plan", (sv, meta), sv.shape[0],
+            run_len, window, ntiles)
+    return meta
+
+
 def _check_tiles(sv, pv, meta: torch.Tensor, window: int):
     _check_pairs(sv, pv)
     if (meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[0] != 7
@@ -402,21 +442,26 @@ def merge_tiles_ref(sv: torch.Tensor, pv: torch.Tensor, meta: torch.Tensor,
 
 
 def merge_tiles(sv: torch.Tensor, pv: torch.Tensor, meta: torch.Tensor,
-                window: int = HBM_WINDOW) -> Tuple[torch.Tensor, torch.Tensor]:
+                window: int = HBM_WINDOW
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel step of one merge-path level: for every column of `meta`
-    (`merge_level_meta`) merge the two masked windows and write the tile's
-    rows of the output runs. On the card a block holds both windows in
-    shared memory, so `window` may be at most MAX_BLOCK_ELEMS / 2 there; the
-    plain version takes any size. The tiles of a plan cover every output
-    row, so the outputs are allocated empty; a column that points outside
-    the arrays traps the kernel, and the next synchronisation raises."""
+    (`merge_level_plan` or `merge_level_meta`) merge the two masked windows
+    and write the tile's rows of the output runs. On the card a block holds
+    both windows in registers with a shared-memory exchange buffer of their
+    size, so `window` may be at most MAX_BLOCK_ELEMS / 2 there; the plain
+    version takes any size. The tiles of a plan cover every output row, so
+    the outputs are allocated empty; a column that points outside the arrays
+    traps the kernel, and the next synchronisation raises. The kernel reads
+    16 bytes a load, so on the card `sv` and `pv` must start on a 16-byte
+    boundary (a whole tensor does; a view that starts at an odd row may
+    not)."""
     _check_tiles(sv, pv, meta, window)
     if not sv.is_cuda:
         return merge_tiles_ref(sv, pv, meta, window)
     if 2 * window > MAX_BLOCK_ELEMS:
         raise ValueError(f"two windows of {window} pairs do not fit a thread "
-                         f"block's shared memory (at most "
-                         f"{MAX_BLOCK_ELEMS // 2} each)")
+                         f"block (at most {MAX_BLOCK_ELEMS // 2} each)")
+    _check_aligned(("sv", sv), ("pv", pv))
     osv, opv = torch.empty_like(sv), torch.empty_like(pv)
     _launch("merge_level_hbm", "merge_level_hbm", (meta, sv, pv, osv, opv),
             sv.shape[0], meta.shape[1], window)
@@ -443,10 +488,13 @@ def merge_level_hbm(sv: torch.Tensor, pv: torch.Tensor, run_len: int,
     `double_buffer` chose, on the TPU, a kernel body that overlapped one
     grid step's copies with the next one's merge; both bodies computed the
     same arrays. Thread blocks run side by side, so one kernel is the
-    counterpart of both, and the argument changes nothing here."""
+    counterpart of both, and the argument changes nothing here.
+
+    On the card a level is two launches, the plan and the merge, and the
+    host reads nothing between them."""
     del double_buffer
     _check_level(sv, pv, run_len, window)
-    return merge_tiles(sv, pv, merge_level_meta(sv, run_len, window), window)
+    return merge_tiles(sv, pv, merge_level_plan(sv, run_len, window), window)
 
 
 # ---------------------------------------------------------------------------

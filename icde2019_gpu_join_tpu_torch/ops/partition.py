@@ -14,6 +14,8 @@ per-key payload multiset is kept); `radix_partition_multipass` is stable.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from icde2019_gpu_join_tpu_torch.ops.band_join import sort_pairs
@@ -48,7 +50,7 @@ def _csr_from_sorted_sortval(sv_sorted: torch.Tensor, total_bits: int):
 
 def radix_partition(keys: torch.Tensor, payload: torch.Tensor,
                     total_bits: int, first_bit: int = 0,
-                    sort_impl: str = "lax") -> PartitionedRelation:
+                    sort_impl: Optional[str] = None) -> PartitionedRelation:
     """Partition (keys, payload) into 2^total_bits partitions, CSR layout,
     by one unstable (rotated key, payload) sort; sort_impl picks its
     implementation (`band_join.sort_pairs`)."""

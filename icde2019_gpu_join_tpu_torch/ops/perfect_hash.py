@@ -133,7 +133,7 @@ def global_ht_join_aggregate(r_keys: torch.Tensor, r_pay: torch.Tensor,
                              s_keys: torch.Tensor, s_pay: torch.Tensor,
                              log_buckets: Optional[int] = None,
                              chain_cap: int = 8,
-                             sort_impl: str = "lax") -> torch.Tensor:
+                             sort_impl: Optional[str] = None) -> torch.Tensor:
     """Global chained-hash-table join (build_ht_chains / chains_probing
     analog, src/join-primitives.cu:681-742): SUM(Pr*Ps), int32 wraparound,
     as a 0-d int32 tensor. Build rows past a bucket's C slots are joined

@@ -170,6 +170,16 @@ def blocked_probe_item_counts(r_keys, s_keys, r_start, r_len, s_start, s_len,
     return out
 
 
+def ring_slot(match_index: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The ring slot of a join's match_index-th match (int64; an item's base
+    plus the match's place in the item): the index wrapped to int32, then
+    mod capacity, non-negative. The reference adds base and place in int32,
+    so past 2^31 - 1 the sum wraps before the modulo; with a capacity that
+    is not a power of two, the modulo of the unwrapped sum would name
+    another slot."""
+    return torch.remainder(wrap_i32(match_index).long(), capacity)
+
+
 def blocked_probe_materialize(r_keys, r_pay, s_keys, s_pay, r_start, r_len,
                               s_start, s_len, item_base: torch.Tensor,
                               capacity: int, tile_r: int = 256,
@@ -200,7 +210,7 @@ def blocked_probe_materialize(r_keys, r_pay, s_keys, s_pay, r_start, r_len,
         k = torch.arange(item.numel(), device=dev) - first[item]
         g = item_base[b].long()[item] + k
         last = g >= g.max() - capacity + 1
-        pos = torch.remainder(g[last], capacity)
+        pos = ring_slot(g[last], capacity)
         out_r[pos] = rp[item[last], r[last]]
         out_s[pos] = sp[item[last], s[last]]
     return out_r, out_s

@@ -203,7 +203,8 @@ def test_main_runs_the_whole_ladder(capsys):
     assert [line["probe"] for line in lines] == [name for name, _ in cp.PROBES]
     assert all(line["ok"] and line["ms"] > 0 for line in lines)
     assert cp.LAUNCHES == {"construct_probes": 0}
-    assert merge.LAUNCHES == {"merge_levels_vmem": 0, "merge_level_hbm": 0}
+    assert merge.LAUNCHES == {"merge_levels_vmem": 0, "merge_level_plan": 0,
+                              "merge_level_hbm": 0}
 
 
 def test_main_takes_probe_names_and_a_geometry(capsys):

@@ -338,5 +338,165 @@ def test_packed_sort_pairs_equals_jax(n, lo, hi):
 def test_reset_launches_zeroes_routes_too():
     merge.ROUTES["fallback"] += 3
     merge.LAUNCHES["merge_level_hbm"] += 2
+    merge.LAUNCHES["merge_level_plan"] += 2
     merge.reset_launches()
     assert set(merge.ROUTES.values()) | set(merge.LAUNCHES.values()) == {0}
+    assert set(merge.LAUNCHES) == {"merge_levels_vmem", "merge_level_plan",
+                                   "merge_level_hbm"}
+
+
+# ---- kernel 7's planner on the card: its wrapper and its per-tile loop ------
+
+def _plan_split(sv, abase: int, bbase: int, run_len: int, o: int) -> int:
+    """The split of pair-local output offset o, by the upper-bound search
+    of `_merge_path_splits` for one diagonal: the largest a in
+    [max(0, o - run_len), min(o, run_len)] with A[a - 1] <= Bv[o - a]. `sv`
+    is indexable by int (a list, or a numpy array of int32)."""
+    lo = max(o - run_len, 0)
+    hi = min(o, run_len)
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        a_prev = int(sv[abase + mid - 1]) if mid >= 1 else mp.INT_MIN
+        bj = o - mid
+        b_at = ~int(sv[bbase + run_len - 1 - bj]) if bj < run_len else mp.INT_MAX
+        if a_prev <= b_at:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _plan_tile(sv, run_len: int, window: int, t: int) -> tuple:
+    """Column t of the plan table as the kernel `tj_merge_level_plan`
+    (csrc/merge.cu) computes it, one thread a tile: the loop the CUDA code
+    follows line for line, in scalar Python."""
+    pair = 2 * run_len
+    tile_out = window - 128
+    tiles_per_pair = -(-pair // tile_out)
+    p, j = divmod(t, tiles_per_pair)
+    last = pair - tile_out
+    o = min(j * tile_out, last)
+    par = p & 1
+    abase = p * pair + par * run_len
+    bbase = p * pair + (1 - par) * run_len
+    a = _plan_split(sv, abase, bbase, run_len, o)
+    b = o - a
+    a_end = b_end = run_len
+    if j + 1 < tiles_per_pair:
+        o2 = min((j + 1) * tile_out, last)
+        a_end = _plan_split(sv, abase, bbase, run_len, o2)
+        b_end = o2 - a_end
+    cap = run_len - window
+    a0 = min(a & ~127, cap)
+    b0 = min(b & ~127, cap)
+    return ((abase + a0) // 128, (bbase + run_len - b0 - window) // 128,
+            a - a0, a_end - a0, window - (b_end - b0), window - (b - b0),
+            (p * pair + o) // 128)
+
+
+PLAN_CASES = [   # the cases of test_splits_and_meta_equal_jax, and two more
+    (0, -(2**31), 2**31, 2 * mp.HBM_WINDOW, mp.HBM_WINDOW),
+    (1, 0, 64, 2 * mp.HBM_WINDOW, mp.HBM_WINDOW),          # duplicate-heavy
+    (2, -(2**31), 2**31, 2 * mp.HBM_WINDOW, 2 * mp.HBM_WINDOW),  # run == window
+    (3, 0, 1000, 4 * mp.HBM_WINDOW, mp.HBM_WINDOW),
+    (4, -5, 5, mp.HBM_WINDOW, mp.HBM_WINDOW),              # run == window
+    (5, 0, 3, 4096, 1024),                                 # a smaller window
+    (6, 7, 8, 2048, 256),                                  # one key only
+]
+
+
+@pytest.mark.parametrize("seed,lo,hi,run,window", PLAN_CASES)
+def test_plan_tile_loop_equals_meta_and_jax(seed, lo, hi, run, window):
+    """`_plan_tile`, the scalar rendering of the plan kernel's per-tile
+    loop, column by column against the torch planner's table and against
+    the table built from JAX's `_merge_path_splits`; the ragged last tile of
+    each pair included."""
+    n = 4 * run
+    sv, pv = make(n, np.random.RandomState(seed), lo=lo, hi=hi)
+    es, _ = encode_runs(sv, pv, run)
+    meta = merge.merge_level_meta(torch.from_numpy(es), run, window).numpy()
+    ntiles = merge.level_tiles(n, run, window)
+    assert meta.shape == (7, ntiles)
+    rows = es.tolist()
+    got = np.array([_plan_tile(rows, run, window, t)
+                    for t in range(ntiles)], dtype=np.int64).T
+    np.testing.assert_array_equal(got, meta)
+    np.testing.assert_array_equal(got, _jax_meta(es, run, window))
+    # the second-to-last tile of a pair is the short one
+    valid = (got[3] - got[2]) + (got[5] - got[4])
+    tiles_per_pair = ntiles // 2
+    assert (valid[tiles_per_pair - 1::tiles_per_pair] == window - 128).all()
+    assert valid.reshape(2, -1).sum(1).tolist() == [2 * run, 2 * run]
+
+
+@pytest.mark.parametrize("seed,lo,hi,run,window", PLAN_CASES[:5])
+def test_plan_split_equals_jax_splits(seed, lo, hi, run, window):
+    n = 4 * run
+    sv, pv = make(n, np.random.RandomState(seed), lo=lo, hi=hi)
+    es, _ = encode_runs(sv, pv, run)
+    a, b, p, o, abase, bbase = (np.asarray(x) for x in mp._merge_path_splits(
+        jnp.asarray(es), run, window - 128))
+    got = [_plan_split(es, int(ab), int(bb), run, int(oo))
+           for ab, bb, oo in zip(abase, bbase, o)]
+    np.testing.assert_array_equal(got, a)
+    # the pair's end splits at the runs' ends, which is what a last tile uses
+    assert _plan_split(es, int(abase[0]), int(bbase[0]), run,
+                             2 * run) == run
+
+
+def test_merge_level_plan_on_cpu_is_merge_level_meta(monkeypatch):
+    run, window = 2 * mp.HBM_WINDOW, mp.HBM_WINDOW
+    sv, pv = make(4 * run, np.random.RandomState(8), lo=0, hi=64)
+    es, ep = encode_runs(sv, pv, run)
+    calls = []
+    real = merge.merge_level_meta
+    monkeypatch.setattr(merge, "merge_level_meta",
+                        lambda *a: calls.append(a[1:]) or real(*a))
+    merge.reset_launches()
+    meta = merge.merge_level_plan(torch.from_numpy(es), run, window)
+    assert calls == [(run, window)]
+    assert torch.equal(meta, real(torch.from_numpy(es), run, window))
+    # and merge_level_hbm plans through it
+    merge.merge_level_hbm(*_t(es, ep), run, window=window)
+    assert calls == [(run, window)] * 2
+    assert set(merge.LAUNCHES.values()) == {0}     # CPU: no kernel launches
+
+
+@pytest.mark.parametrize("planner", ["scalar", "torch"])
+def test_merge_tiles_takes_either_planners_table(planner):
+    """The plan table is the interface between the two launches:
+    `merge_tiles` on the table made of `_plan_tile` columns, or on
+    `merge_level_meta`'s, equals `merge_level_hbm_ref`."""
+    run, window = 2048, 1024
+    sv, pv = make(4 * run, np.random.RandomState(9), lo=0, hi=64)
+    es, ep = encode_runs(sv, pv, run)
+    ntiles = merge.level_tiles(4 * run, run, window)
+    if planner == "scalar":
+        meta = torch.tensor([_plan_tile(es, run, window, t)
+                             for t in range(ntiles)],
+                            dtype=torch.int32).T.contiguous()
+    else:
+        meta = merge.merge_level_meta(torch.from_numpy(es), run, window)
+    got = merge.merge_tiles(*_t(es, ep), meta, window)
+    _assert_pairs_equal(got, merge.merge_level_hbm_ref(*_t(es, ep), run, window))
+
+
+@pytest.mark.parametrize("bad", ["run_below_window", "length", "window"])
+def test_merge_level_plan_rejects_bad_inputs(bad):
+    sv = torch.zeros(1 << 13, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        if bad == "run_below_window":
+            merge.merge_level_plan(sv, 512, 1024)
+        elif bad == "length":
+            merge.merge_level_plan(sv[:3000], 1024, 1024)
+        else:
+            merge.merge_level_plan(sv, 1024, 128)
+
+
+def test_check_aligned_names_a_view_off_a_16_byte_boundary():
+    """The card's kernels load 16-byte vectors; the wrappers refuse a view
+    that starts off such a boundary, by name, before any launch."""
+    whole = torch.zeros(1 << 12, dtype=torch.int32)
+    merge._check_aligned(("sv", whole), ("pv", whole[4:]))
+    with pytest.raises(ValueError, match="pv.*16-byte"):
+        merge._check_aligned(("sv", whole), ("pv", whole[1:]))

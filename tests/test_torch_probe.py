@@ -235,3 +235,23 @@ def test_blocked_probe_with_an_empty_side_is_zero(rng):
     assert int(probe.blocked_probe_count(z, c.ts.keys, *c.dev, **c.tiles)) == 0
     counts = probe.blocked_probe_item_counts(z, z, *c.dev, **c.tiles)
     assert counts.shape == (c.plan.padded_items,) and not counts.any()
+
+
+@pytest.mark.parametrize("capacity", [1000003, 3 << 20, 1 << 24])
+@pytest.mark.parametrize("start", [2**31 - 40, 2**31 + 5, 2**32 - 20,
+                                   2**32 + 100, 12345])
+def test_ring_slot_wraps_to_int32_as_jax_does(start, capacity):
+    """The slot of a join's m-th match past 2^31 - 1 matches: the reference
+    adds an item's base and the match's place in int32 (ops/probe.py,
+    `pos = (base + local) % capacity`), so the sum wraps before the modulo.
+    With a capacity that is not a power of two the unwrapped modulo differs."""
+    local = np.arange(64, dtype=np.int64)
+    index = start + local                      # the port's int64 match index
+    base = np.int64(start).astype(np.int32)    # what JAX's int32 base holds
+    want = np.asarray((jnp.asarray(base) + jnp.asarray(local.astype(np.int32)))
+                      % capacity)
+    got = probe.ring_slot(torch.from_numpy(index), capacity).numpy()
+    assert got.min() >= 0 and got.max() < capacity
+    np.testing.assert_array_equal(got, want)
+    if start >= 2**31 - 40 and start < 2**32 and capacity & (capacity - 1):
+        assert not np.array_equal(got, index % capacity)

@@ -302,6 +302,132 @@ def test_unknown_sort_impl_raises(where):
 def test_port_has_no_process_wide_sort_default():
     """The choice lives in the config or the argument: no setter, no
     module default, no environment variable."""
-    for name in ("_SORT_IMPL", "set_sort_impl", "get_sort_impl",
-                 "resolve_sort_impl"):
+    for name in ("_SORT_IMPL", "set_sort_impl", "get_sort_impl"):
         assert not hasattr(band_join, name)
+
+
+# ---- sort_impl=None: the reference's default, "lax" ------------------------
+
+def _none_sort_pairs():
+    rk, rp, _, _ = _tables("cascade", dup=True)
+    from icde2019_gpu_join_tpu.ops.band_join import sort_pairs as jax_sort
+    got = band_join.sort_pairs(torch.from_numpy(rk), torch.from_numpy(rp), None)
+    want = jax_sort(jnp.asarray(rk), jnp.asarray(rp), None)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(_multiset(*got), _multiset(*want))
+
+
+def _none_sort_by_key():
+    rk, rp, _, _ = _tables("key0", dup=True)
+    from icde2019_gpu_join_tpu.ops.band_join import sort_by_key as jax_sort
+    got = band_join.sort_by_key(torch.from_numpy(rk[:-5]),
+                                torch.from_numpy(rp[:-5]))     # pads to 128
+    want = jax_sort(jnp.asarray(rk[:-5]), jnp.asarray(rp[:-5]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(_multiset(*got), _multiset(*want))
+
+
+def _none_banded_join_aggregate():
+    from icde2019_gpu_join_tpu.ops.band_join import banded_join_aggregate as j
+    t = _tables("cascade")
+    got = band_join.banded_join_aggregate(*map(torch.from_numpy, t))
+    assert int(got) == int(j(*map(jnp.asarray, t))) \
+        == toracle.join_aggregate(*t)
+
+
+def _none_banded_materialize():
+    from icde2019_gpu_join_tpu.ops.band_join import banded_materialize as j
+    t = _tables("cascade", dup=True)
+    total = toracle.join_materialize(*t).shape[0]
+    got = band_join.banded_materialize(*map(torch.from_numpy, t), total + 64)
+    want = j(*map(jnp.asarray, t), total + 64)
+    assert int(got[2]) == int(want[2]) == total
+    np.testing.assert_array_equal(_multiset(got[0], got[1]),
+                                  _multiset(want[0], want[1]))
+
+
+def _none_radix_partition():
+    from icde2019_gpu_join_tpu.ops.partition import radix_partition as jax_rp
+    rk, rp, _, _ = _tables("cascade", dup=True)
+    got = partition.radix_partition(torch.from_numpy(rk),
+                                    torch.from_numpy(rp), 5)
+    want = jax_rp(jnp.asarray(rk), jnp.asarray(rp), 5)
+    for name in ("keys", "counts", "offsets"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), name)
+    np.testing.assert_array_equal(_multiset(got.keys, got.payload),
+                                  _multiset(want.keys, want.payload))
+
+
+def _none_filter_probe_groupby():
+    inputs = _pipeline_inputs("cascade")
+    args = [torch.from_numpy(a) for a in inputs]
+    want = jpipelines.filter_probe_groupby(*map(jnp.asarray, inputs),
+                                           100, 600, 16)
+    for got in (pipelines.filter_probe_groupby(*args, 100, 600, 16),
+                pipelines.filter_probe_groupby(*args, 100, 600, 16,
+                                               sort_impl=None),
+                pipelines.filter_probe_groupby_streamed(
+                    *args, 100, 600, 16, segments=4, sort_impl=None)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _none_global_ht_join_aggregate():
+    t = _tables("cascade", dup=True)
+    got = int(ph.global_ht_join_aggregate(*map(torch.from_numpy, t),
+                                          sort_impl=None))
+    assert got == int(jph.global_ht_join_aggregate(*map(jnp.asarray, t))) \
+        == toracle.join_aggregate(*t)
+
+
+def _none_engine():
+    rk, rp, sk, sp = _tables("cascade")
+    (tr, ts), (jr, js) = _rels(rk, rp, sk, sp)
+    port = ClusteredJoin(EngineConfig(), device="cpu")
+    assert EngineConfig().sort_impl is None and port.sort_impl == "lax"
+    assert port.aggregate(tr, ts).aggregate \
+        == JaxJoin(jconfig.EngineConfig()).aggregate(jr, js).aggregate \
+        == toracle.join_aggregate(rk, rp, sk, sp)
+
+
+@pytest.mark.parametrize("entry", [
+    _none_sort_pairs, _none_sort_by_key, _none_banded_join_aggregate,
+    _none_banded_materialize, _none_radix_partition,
+    _none_filter_probe_groupby, _none_global_ht_join_aggregate, _none_engine,
+], ids=lambda f: f.__name__[len("_none_"):])
+def test_sort_impl_none_is_lax_as_in_jax(entry):
+    """`sort_impl=None`, the default of every function that sorts in both
+    packages, runs the library sort: no cascade, no fallback, and the JAX
+    function's result on the same inputs."""
+    merge.reset_launches()
+    entry()
+    assert merge.ROUTES == {"cascade": 0, "fallback": 0}
+
+
+@pytest.mark.parametrize("name,want", [(None, "lax"), ("lax", "lax"),
+                                       ("merge", "merge"),
+                                       ("packed", "packed")])
+def test_resolve_sort_impl(name, want, monkeypatch):
+    """No process default and no environment variable: None is "lax"
+    whatever the reference's variable says."""
+    monkeypatch.setenv("TPUJOIN_SORT_IMPL", "merge")
+    assert band_join.resolve_sort_impl(name) == want
+
+
+@pytest.mark.parametrize("name", ["bitonic", "", "LAX", 0])
+def test_resolve_sort_impl_rejects_unknown_names(name):
+    with pytest.raises(ValueError, match="unknown sort_impl"):
+        band_join.resolve_sort_impl(name)
+
+
+def test_sort_impl_defaults_are_none_where_jax_defaults_to_none():
+    import inspect
+    for fn in (band_join.sort_pairs, band_join.sort_by_key,
+               band_join.banded_join_aggregate, band_join.banded_join_count,
+               band_join.banded_join_late_aggregate,
+               band_join.banded_materialize, partition.radix_partition,
+               pipelines.filter_probe_groupby,
+               pipelines.filter_probe_groupby_streamed,
+               ph.global_ht_join_aggregate):
+        assert inspect.signature(fn).parameters["sort_impl"].default is None, fn
