@@ -16,6 +16,9 @@ run of all phases can pass. The phases:
              exact int32 equality: the four banded kernels at small shapes
              (W > 1, full-range payloads, empty windows) and at the shape
              their path gives them, with both times at that shape; the
+             interval select (kernel 4) also at widths of 1, 257, 333 and 512
+             columns on disjoint intervals and on overlapping, inverted and
+             INT32_MIN / INT32_MAX ones; the
              stream-range probe (kernel 5) at small plans (several partitions
              per R tile, tiles with no chunks, a skewed tile with hundreds of
              chunks, chunk counts past S, full-range payloads) and at
@@ -26,7 +29,9 @@ run of all phases can pass. The phases:
              plan kernel's table equal to the torch planner's: small shapes
              (duplicate-heavy and full-range keys, several blocks so odd run
              parities occur, two pairs so an odd pair's encoded output
-             occurs, the short second-to-last tile of a pair, windows 8192,
+             occurs, output runs of 2^13 and of 256, a number of output runs
+             that is odd and one that ends inside a block,
+             the short second-to-last tile of a pair, windows 8192,
              4096, 1024 and 256, keys in [0, 16) at 2^20 and 2^21 pairs)
              and the shapes the 2^27 cascade gives them,
              which the phase walks level by level: base runs, kernel 6 at run
@@ -56,7 +61,8 @@ run of all phases can pass. The phases:
              24 against the plain version, with the rates;
   probes     the ladder of construct probes (kernel 10,
              `benchmarks/construct_probes.py` of the port) through
-             `run_probes`: every probe ok, with its time;
+             `run_probes`: every probe ok, with its time, and the time of an
+             empty kernel through the same launcher (a launch's floor);
   sort tools `bench_packed` and `bench_full` at 2^24 and `merge_fix_validate`
              at 2^18 and 2^24 through their entry points, every check true,
              window 32768 refused;
@@ -191,11 +197,14 @@ ROUTES = {
 }
 # The integer operations each kernel's function needs per unit of work, for
 # its bound: per compared (S row, R column) pair a compare and one
-# predicated add (kernels 1 and 5), two adds (2), an add and a min (3), two
-# compares and three adds (4); per compare-exchange of the merge kernels,
-# the tile sort, the stage kernel and the probes a compare and four selects.
+# predicated add (kernels 1 and 5), two adds (2), an add and a min (3); for
+# the interval select (4) the least any design needs, a subtraction and an
+# unsigned compare a pair ((uint32)(pos - lo) < len), since payloads are
+# touched per hit and not per pair; per compare-exchange of the merge
+# kernels, the tile sort, the stage kernel and the probes a compare and four
+# selects.
 KERNEL_OPS = {"banded_compare_sum": 2, "banded_compare_per_s": 3,
-              "banded_compare_first": 3, "banded_interval_select": 5,
+              "banded_compare_first": 3, "banded_interval_select": 2,
               "probe_aggregate_ranges": 2, "merge_levels_vmem": 5,
               "merge_level_hbm": 5, "sort_tiles": 5, "stage_reps": 5,
               "construct_probes": 5}
@@ -343,6 +352,25 @@ def _interval_args(gen, ch, wb):
             torch.ones_like(lo))
 
 
+INTERVAL_EDGE_SHAPES = [(5, 1), (7, 333), (64, 257), (2048, 512)]   # (CH, WB)
+EXTREMES = (-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1)
+
+
+def _interval_edge_args(gen, ch, wb):
+    """What the engine never sends and the kernel must still get right:
+    intervals that overlap (a slot sums every column that holds it), inverted
+    ones (hi < lo: they hold nothing), and, in every fourth row, pos, lo and
+    hi drawn from INT32_MIN, INT32_MAX and their neighbours."""
+    lo = _ints(gen, -8, 40, (ch, wb))
+    hi = lo + _ints(gen, -3, 12, (ch, wb))
+    pos = _ints(gen, -10, 52, (ch, band_compare.LANES))
+    ext = torch.tensor(EXTREMES, dtype=torch.int32, device=DEVICE)
+    for x in (lo, hi, pos):
+        x[1::4] = ext[_ints(gen, 0, len(EXTREMES), x[1::4].shape).long()]
+    return (pos, lo, hi, _full(gen, (ch, wb)), _full(gen, (ch, wb)),
+            _full(gen, (ch, wb)))
+
+
 BC = band_compare
 # the banded kernels, name: (wrapper, plain version, inputs)
 KERNELS = {
@@ -452,6 +480,27 @@ def phase_kernel() -> dict:
               f"{SMALL_SHAPES + main}; at {main[0]}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"by {bound['bound_by']}")
+    # the interval select at widths that are no multiple of its staging tile
+    # nor even, on the engine's kind of intervals and on the edge cases
+    hits = 0
+    for ch, wb in INTERVAL_EDGE_SHAPES:
+        for make in (_interval_args, _interval_edge_args):
+            args = make(gen, ch, wb)
+            got = BC.banded_interval_select(*args)
+            err = _max_err(got, BC.banded_interval_select_ref(*args))
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"banded_interval_select: kernel != plain "
+                                     f"at CH={ch} WB={wb}, {make.__name__} "
+                                     f"(max abs err {err})")
+        pos, lo, hi = args[:3]
+        inb = (lo[:, None, :] <= pos[:, :, None]) & (pos[:, :, None] < hi[:, None, :])
+        hits = max(hits, int(inb.sum(2).max()))
+    if hits < 2:
+        raise AssertionError("the edge intervals never overlap on a slot")
+    print(f"[kernel] banded_interval_select: equal to plain at (CH, WB) in "
+          f"{INTERVAL_EDGE_SHAPES}, disjoint intervals and overlapping (up "
+          f"to {hits} on one slot), inverted and INT32_MIN / INT32_MAX ones")
     return stats
 
 
@@ -641,9 +690,13 @@ def _wall_ms(fn) -> float:
 
 LEVEL_SHAPES = [   # kernel 6: (n, run_len, levels, key lo, key hi)
     (1 << 16, 256, 3, 0, 64),                   # duplicate-heavy
-    (1 << 16, 128, 1, -2**31 + 1, 2**31 - 1),   # full range, 256-pair blocks
+    (1 << 16, 128, 1, -2**31 + 1, 2**31 - 1),   # full range, 256-pair runs
     (1 << 17, 4096, 2, -2**31 + 1, 2**31 - 1),  # 8 blocks: odd parities
     (1 << 15, 512, 5, 0, 64),                   # five levels in one block
+    (5 << 13, 2048, 2, 0, 64),                  # span 2^13, n / span odd
+    (3 << 14, 2048, 3, 0, 64),                  # span 2^14, n / span odd
+    (7 << 11, 256, 3, -2**31 + 1, 2**31 - 1),   # a ragged last block
+    (3 << 8, 128, 1, 0, 64),                    # under one block of pairs
 ]
 TILE_SHAPES = [    # kernel 7: (n, run_len, window, key lo, key hi)
     (1 << 16, 1 << 14, 8192, 0, 64),   # two pairs, five tiles each, the
@@ -665,8 +718,10 @@ def phase_kernel_merge() -> dict:
     gen.manual_seed(SEED + 6)
     for n, run, levels, lo, hi in LEVEL_SHAPES:
         es, ep = _encoded_runs(*_sort_inputs(gen, n, lo, hi), run)
-        _same_pairs(merge.merge_levels_vmem(es, ep, run, levels),
-                    merge.merge_levels_vmem_ref(es, ep, run, levels),
+        # n is any multiple of the output run: name it as the grid tile
+        span = run << levels
+        _same_pairs(merge.merge_levels_vmem(es, ep, run, levels, span),
+                    merge.merge_levels_vmem_ref(es, ep, run, levels, span),
                     f"merge_levels_vmem at {(n, run, levels)}")
     for n, run, window, lo, hi in TILE_SHAPES:
         es, ep = _encoded_runs(*_sort_inputs(gen, n, lo, hi), run)
@@ -697,7 +752,10 @@ def phase_kernel_merge() -> dict:
                                    f"merge_levels_vmem at 2^{SORT_SCALE}"),
         "ms": _time_ms(k6, 10), "plain_ms": _time_ms(k6_plain, 1),
         # 13 + 14 stages of n / 2 exchanges
-        **_bound(16 * n, 27 * (n // 2) * KERNEL_OPS["merge_levels_vmem"])}}
+        **_bound(16 * n, 27 * (n // 2) * KERNEL_OPS["merge_levels_vmem"]),
+        "stages": 27}}
+    k6s = stats["merge_levels_vmem"]
+    k6s["Gelem_stage_s"] = n * k6s["stages"] / k6s["ms"] / 1e6
     cur = k6()
     del es, ep
     run <<= levels
@@ -753,10 +811,10 @@ def phase_kernel_merge() -> dict:
         "levels_planner_wall_ms": sum(plan_ms),
         "levels_plan_kernel_ms": sum(plan_kernel_ms),
         "plan_ms": plan_kernel_ms[0], "plan_torch_wall_ms": plan_ms[0]}
-    k6s = stats["merge_levels_vmem"]
     print(f"[kernel merge] 2^{SORT_SCALE} cascade: base runs {base_ms:.3f} "
-          f"ms; merge_levels_vmem (run 4096, 2 levels) {k6s['ms']:.4f} ms, "
-          f"plain {k6s['plain_ms']:.3f} ms, bound {k6s['bound_ms']:.4f} ms by "
+          f"ms; merge_levels_vmem (run 4096, 2 levels) {k6s['ms']:.4f} ms "
+          f"({k6s['Gelem_stage_s']:.1f} Gelem-stage/s over {k6s['stages']} "
+          f"stages), plain {k6s['plain_ms']:.3f} ms, bound {k6s['bound_ms']:.4f} ms by "
           f"{k6s['bound_by']}; merge_level_hbm at run 2^14 ({first['ntiles']} "
           f"tiles) {first['ms']:.4f} ms, plain {first['plain_ms']:.3f} ms, "
           f"bound {first['bound_ms']:.4f} ms by {first['bound_by']}; at run "
@@ -940,6 +998,8 @@ def phase_kernel_stage() -> tuple:
     first = next(iter(cases))
     stats = {**{k: cases[first][k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        # the meter's own bound: the `reps` passes it is asked to make
+        "passes_bound_ms": cases[first]["passes_bound_ms"],
         "at": first, "cases": cases, "vmem_level_ms": res["vmem_level_ms"]}
     print(f"[kernel stage] n = 2^{STAGE_SCALE}, reps {reps}, equal to plain; "
           + "; ".join(
@@ -968,11 +1028,14 @@ def phase_probes() -> tuple:
     mine = {name: by_name[name] for name in cp.CONSTRUCTS}
     ops = sum(stages * exchanges * KERNEL_OPS["construct_probes"]
               for stages, exchanges in PROBE_EXCHANGES.values())
+    # what of a probe's time is its launch: an empty kernel through the same
+    # launcher, timed as a probe is
+    floor_ms = cp.launch_floor_ms(DEVICE)
     stats = {"max_abs_err": 0,
              "ms": sum(line["ms"] for line in mine.values()),
              "plain_ms": sum(line["plain_ms"] for line in mine.values()),
              **_bound(4 * sum(PROBE_ELEMENTS.values()), ops),
-             "probes": len(mine),
+             "probes": len(mine), "launch_floor_ms": floor_ms,
              "probe_ms": {name: line["ms"] for name, line in by_name.items()},
              "probe_plain_ms": {name: line["plain_ms"]
                                 for name, line in by_name.items()}}
@@ -980,8 +1043,11 @@ def phase_probes() -> tuple:
           f"ms, kernel / plain: " + ", ".join(
               f"{n} {l['ms']:.4f} / {l['plain_ms']:.3f}" for n, l in by_name.items())
           + f"; the {len(mine)} probe kernels together {stats['ms']:.4f} ms, "
-          f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']}; "
-          f"launches {launches}")
+          f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']}; an empty "
+          f"kernel through the same launcher, by the same clock (best of 25): "
+          f"{floor_ms:.4f} ms a launch, {len(mine) * floor_ms:.4f} ms for "
+          f"{len(mine)} ({len(mine) * floor_ms / stats['ms']:.0%} of the "
+          f"probes' time); launches {launches}")
     return stats, launches["construct_probes"]
 
 

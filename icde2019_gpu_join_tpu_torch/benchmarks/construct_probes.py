@@ -45,6 +45,11 @@ On CUDA tensors a construct launches its kernel (built with nvcc at first
 use) or raises; on CPU tensors it runs the plain version. `LAUNCHES` counts
 the probe kernels launched.
 
+The blocks are so small that a probe's time is mostly its launch.
+`launch_floor_ms` says how much: it times `empty_launch`, which allocates an
+output block as a construct does and launches a kernel that does nothing
+through the same launcher (`tj_probe_empty`; no probe, not counted).
+
 Usage: python -m icde2019_gpu_join_tpu_torch.benchmarks.construct_probes
            [probe ...] [--device cpu] [--run 12 --levels 1 --tile 14]
 (no names = all probes in order). Prints one JSON line per probe,
@@ -77,7 +82,7 @@ BLOCK = BLOCK_ROWS * LANES  # 2^14 elements
 # the C entry points `tj_probe_<name>` of csrc/construct_probes.cu
 ENTRY_POINTS = ("min_dma", "min_dma_compute", "concat_only", "concat_merge",
                 "stage", "sublane_ladder", "dirmask_stage", "transpose_only",
-                "lane_ladder_T", "full_merge_T", "merge_T_dm")
+                "lane_ladder_T", "full_merge_T", "merge_T_dm", "empty")
 
 # Probe kernels launched since the last reset.
 LAUNCHES: Dict[str, int] = {"construct_probes": 0}
@@ -215,7 +220,7 @@ def _kernel(entry: str):
 
 
 def _launch(entry: str, o: torch.Tensor, meta=None, a=None, b=None,
-            arg: int = 0) -> torch.Tensor:
+            arg: int = 0, counted: bool = True) -> torch.Tensor:
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel(entry)(*(None if x is None else x.data_ptr()
@@ -223,7 +228,7 @@ def _launch(entry: str, o: torch.Tensor, meta=None, a=None, b=None,
                              stream)
     if err != 0:
         raise RuntimeError(f"tj_probe_{entry} launch failed: CUDA error {err}")
-    LAUNCHES["construct_probes"] += 1
+    LAUNCHES["construct_probes"] += counted
     return o
 
 
@@ -332,6 +337,25 @@ def merge_T_dm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """`full_merge_T` with every stage descending where the lower element's
     row is odd."""
     return _run("merge_T_dm", merge_T_dm_ref, BLOCK_ROWS, BLOCK_ROWS, (a, b))
+
+
+def empty_launch(a: torch.Tensor) -> torch.Tensor:
+    """An output block allocated as a construct allocates it and, on the
+    card, an empty kernel launched on it through the same launcher: nothing
+    is computed and the block is left as allocated. It is no probe and is
+    not counted in `LAUNCHES`; its time is the floor under a probe's."""
+    _check_block("a", a, BLOCK_ROWS)
+    o = a.new_empty((BLOCK_ROWS, LANES))
+    return _launch("empty", o, counted=False) if a.is_cuda else o
+
+
+def launch_floor_ms(device="cuda", seed: int = 0) -> float:
+    """`empty_launch` timed by the clock `probe` times a construct with
+    (`_held`): what of a probe's `ms` is allocation and launch. The host's
+    work between the two events is most of it and now and then takes
+    several times as long, so this is the best of 25 calls, not of 5."""
+    (a,) = _blocks(BLOCK_ROWS, 1, device, seed)
+    return best_ms(lambda: empty_launch(a), device, reps=25)
 
 
 # ---------------------------------------------------------------------------

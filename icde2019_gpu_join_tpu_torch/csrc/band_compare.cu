@@ -18,23 +18,43 @@
 // Caller contract (as on the TPU): R columns outside an S block's window
 // carry a key that matches nothing real and rp == 0.
 //
-// What bounds them on the card: CH*128*WB compares against
-// (CH*128*k + CH*WB*m)*4 bytes moved, i.e. 8 or more compares per byte at
-// W = 1. Each compare costs a shared-memory broadcast load, a compare and a
-// select-add, so the kernels are bound by integer issue, not device memory.
+// What bounds them on the card: CH*128*WB compared pairs against
+// (CH*128*k + CH*WB*m)*4 bytes moved, i.e. 8 or more pairs per byte at
+// W = 1: the operations a pair costs, not device memory.
 //
-// Design, deliberately simple and shared by all four: one thread block per
-// chunk row i, one thread per S lane l holding its key (or slot) in a
-// register. The block stages the row's R-side columns through shared memory
-// in tiles of kTile (for_each_r_tile), so any window width fits; every thread
-// then reads each staged column as a broadcast. Sums are uint32 (signed
-// overflow is undefined in C++, unsigned wraps mod 2^32). Kernels 2-4 write
-// one output per lane and need no reduction; kernel 1 reduces the block with
-// warp shuffles and one atomicAdd (addition mod 2^32 commutes, so the order
-// the atomics land in cannot change the sum). The TPU kernels' in-VMEM
-// transposes and sublane loops have no counterpart here. wgmma does not apply
-// to integer equality; TMA staging, fusing the R-block gather and several
-// rows per block are later work.
+// Kernels 1-3, one design: one thread block per chunk row i, one thread per S
+// lane l holding its key in a register. The block stages the row's R-side
+// columns through shared memory in tiles of kTile (for_each_r_tile), so any
+// window width fits; every thread then reads each staged column as a
+// broadcast: two shared-memory loads, a compare and one or two predicated
+// operations a pair. Sums are uint32 (signed overflow is undefined in C++,
+// unsigned wraps mod 2^32). Kernels 2 and 3 write one output per lane and
+// need no reduction; kernel 1 reduces the block with warp shuffles and one
+// atomicAdd (addition mod 2^32 commutes, so the order the atomics land in
+// cannot change the sum). The TPU kernels' in-VMEM transposes and sublane
+// loops have no counterpart here. wgmma does not apply to integer equality.
+//
+// Kernel 4, the interval select, has a design of its own. With one slot a
+// thread and five staged columns (lo, hi, p1, p2, p3) a pair cost more than
+// four warp-wide shared-memory loads (the compiler fetched four lo at a time
+// and predicated the payloads' loads, which a warp still makes when one lane
+// hits), and a multiprocessor serves one such load a clock: the load pipe,
+// not the integer work, set the time. Now:
+//   * a warp takes one chunk row and a thread four of its slots, so one
+//     staged load serves four pairs; a block is four warps on four rows, each
+//     staging its own row into its own part of shared memory, so the warps
+//     meet at no block barrier (__syncwarp only);
+//   * the test is one subtraction and one unsigned compare,
+//     (uint32)(pos - lo) < len with len = hi > lo ? hi - lo : 0 computed once
+//     when the row is staged. For lo <= hi that is lo <= pos < hi for every
+//     int32 pos, lo, hi, by arithmetic mod 2^32; an inverted interval
+//     (hi < lo) holds nothing, hence len = 0. lo and len lie side by side,
+//     and one 16-byte load brings two columns;
+//   * the payloads are staged too, 16 bytes a column, but read only under
+//     `if (hit)`: on the caller's inputs a slot lies in one interval of its
+//     row, so a warp takes the branch in about a quarter of its columns.
+//     Every hit still adds: overlapping intervals give the sum, as the TPU
+//     kernel's where + sum does.
 
 #include <climits>
 #include <cstdint>
@@ -149,34 +169,97 @@ band_compare_first_kernel(const int32_t* __restrict__ sk,
   fm_out[i] = fm;
 }
 
-__global__ void __launch_bounds__(kLanes)
+constexpr int kSelRows = 4;     // chunk rows a block takes, one warp each
+constexpr int kSelSlots = kLanes / 32;   // slots a thread holds: 4
+constexpr int kSelTile = 256;   // window columns a warp stages per pass
+
+// One staged column against a thread's slots: every slot the interval holds
+// adds the column's payloads.
+__device__ __forceinline__ void select_column(
+    const int32_t (&p)[kSelSlots], int32_t lo, int32_t len, const int4* pay,
+    uint32_t (&a)[kSelSlots], uint32_t (&b)[kSelSlots],
+    uint32_t (&c)[kSelSlots]) {
+  bool hit[kSelSlots];
+  bool any = false;
+#pragma unroll
+  for (int s = 0; s < kSelSlots; ++s) {
+    hit[s] = static_cast<uint32_t>(p[s]) - static_cast<uint32_t>(lo) <
+             static_cast<uint32_t>(len);
+    any |= hit[s];
+  }
+  if (any) {
+    const int4 q = *pay;
+#pragma unroll
+    for (int s = 0; s < kSelSlots; ++s) {
+      a[s] += hit[s] ? static_cast<uint32_t>(q.x) : 0u;
+      b[s] += hit[s] ? static_cast<uint32_t>(q.y) : 0u;
+      c[s] += hit[s] ? static_cast<uint32_t>(q.z) : 0u;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSelRows * 32)
 band_interval_select_kernel(const int32_t* __restrict__ pos,
                             const int32_t* __restrict__ lo,
                             const int32_t* __restrict__ hi,
                             const int32_t* __restrict__ p1,
                             const int32_t* __restrict__ p2,
-                            const int32_t* __restrict__ p3, int64_t wb,
-                            int32_t* __restrict__ o1,
+                            const int32_t* __restrict__ p3, int64_t ch,
+                            int64_t wb, int32_t* __restrict__ o1,
                             int32_t* __restrict__ o2,
                             int32_t* __restrict__ o3) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
-  const int32_t p = pos[i];
-  const int64_t r = blockIdx.x * wb;
-  const int32_t* const cols[5] = {lo + r, hi + r, p1 + r, p2 + r, p3 + r};
+  // per warp: (lo, len) of each staged column, and its three payloads
+  __shared__ __align__(16) int2 span[kSelRows][kSelTile];
+  __shared__ __align__(16) int4 pays[kSelRows][kSelTile];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kSelRows + warp;
+  if (row >= ch) return;   // the whole warp; no block barrier follows
+  int2* const my_span = span[warp];
+  int4* const my_pays = pays[warp];
 
-  uint32_t a = 0, b = 0, c = 0;
-  for_each_r_tile<5>(cols, wb, [&](const int32_t (*s)[kTile], int n) {
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const bool in = s[0][j] <= p && p < s[1][j];
-      a += in ? static_cast<uint32_t>(s[2][j]) : 0u;
-      b += in ? static_cast<uint32_t>(s[3][j]) : 0u;
-      c += in ? static_cast<uint32_t>(s[4][j]) : 0u;
+  // slot s of lane t is lane slot 32 s + t of the row: coalesced both ways
+  int32_t p[kSelSlots];
+  uint32_t a[kSelSlots], b[kSelSlots], c[kSelSlots];
+#pragma unroll
+  for (int s = 0; s < kSelSlots; ++s) {
+    p[s] = pos[row * kLanes + 32 * s + lane];
+    a[s] = b[s] = c[s] = 0;
+  }
+
+  const int64_t r = row * wb;
+  for (int64_t base = 0; base < wb; base += kSelTile) {
+    const int n = static_cast<int>(wb - base < kSelTile ? wb - base : kSelTile);
+    const int n2 = (n + 1) & ~1;   // two columns a load: an odd tail is padded
+    __syncwarp();   // every lane is done with the previous tile
+    for (int j = lane; j < n2; j += 32) {
+      if (j < n) {
+        const int64_t g = r + base + j;
+        const int32_t l = lo[g];
+        const int32_t h = hi[g];
+        const uint32_t len =
+            h > l ? static_cast<uint32_t>(h) - static_cast<uint32_t>(l) : 0u;
+        my_span[j] = make_int2(l, static_cast<int32_t>(len));
+        my_pays[j] = make_int4(p1[g], p2[g], p3[g], 0);
+      } else {
+        my_span[j] = make_int2(0, 0);   // holds nothing
+      }
     }
-  });
-  o1[i] = static_cast<int32_t>(a);
-  o2[i] = static_cast<int32_t>(b);
-  o3[i] = static_cast<int32_t>(c);
+    __syncwarp();
+#pragma unroll 4
+    for (int j = 0; j < n2; j += 2) {
+      const int4 two = *reinterpret_cast<const int4*>(my_span + j);
+      select_column(p, two.x, two.y, my_pays + j, a, b, c);
+      select_column(p, two.z, two.w, my_pays + j + 1, a, b, c);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSelSlots; ++s) {
+    const int64_t i = row * kLanes + 32 * s + lane;
+    o1[i] = static_cast<int32_t>(a[s]);
+    o2[i] = static_cast<int32_t>(b[s]);
+    o3[i] = static_cast<int32_t>(c[s]);
+  }
 }
 
 const int32_t* in(const void* p) { return static_cast<const int32_t*>(p); }
@@ -186,8 +269,8 @@ cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 }  // namespace
 
 // Every entry point launches on `stream`, does not synchronise, and returns
-// cudaGetLastError(). ch is the number of chunk rows (one block each), wb the
-// width of the R-side arrays.
+// cudaGetLastError(). ch is the number of chunk rows (one block each; the
+// interval select one warp each), wb the width of the R-side arrays.
 
 // Adds the chunk's sum to out[0] (a uint32 the caller zeroed).
 extern "C" int tj_banded_compare_sum(const void* sk, const void* sp,
@@ -226,9 +309,9 @@ extern "C" int tj_banded_interval_select(const void* pos, const void* lo,
                                          void* o1, void* o2, void* o3,
                                          int64_t ch, int64_t wb, void* stream) {
   if (ch <= 0) return 0;
-  band_interval_select_kernel<<<static_cast<unsigned int>(ch), kLanes, 0,
-                                as_stream(stream)>>>(
-      in(pos), in(lo), in(hi), in(p1), in(p2), in(p3), wb, out(o1), out(o2),
-      out(o3));
+  band_interval_select_kernel<<<
+      static_cast<unsigned int>((ch + kSelRows - 1) / kSelRows), kSelRows * 32,
+      0, as_stream(stream)>>>(in(pos), in(lo), in(hi), in(p1), in(p2), in(p3),
+                              ch, wb, out(o1), out(o2), out(o3));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,10 @@
 // bitonic.cuh: the compare-exchange network on (key, payload) pairs, shared
 // by the kernels that merge or sort inside a block: first with the pairs held
-// in shared memory (kernels 6, 9 and 10), then, in the second half, with the
-// pairs held in registers (kernels 7 and 8).
+// in shared memory (the stage meter, stage_reps.cu, and the construct probes,
+// construct_probes.cu: each prices or shows one stage as a trip through
+// shared memory), then, in the second half, with the pairs held in registers
+// (the in-block merge levels and the merge-path level of merge.cu, and the
+// tile sort of sort_tiles.cu).
 //
 // A stage at distance d (a power of two) over m elements is m / 2
 // independent exchanges: exchange i compares element lo = tj_stage_lo(i, d)
@@ -114,7 +117,8 @@ struct TjFlat {
 };
 
 // ---------------------------------------------------------------------------
-// The same network with a block's elements in registers (kernels 7 and 8).
+// The same network with a block's elements in registers (merge.cu,
+// sort_tiles.cu).
 //
 // A block of T threads holds m = T * E (key, payload) pairs, E = 2^B a
 // thread, and never keeps them in shared memory between stages. Which E
@@ -207,10 +211,13 @@ struct TjSwapLess {
     pa = p;
   }
   // Whether a thread replaces its element by its partner's, which a shuffle
-  // brought; is_hi: this thread holds the upper element of the exchange.
+  // brought; is_hi: this thread holds the upper element of the exchange. The
+  // lower thread swaps iff other < mine, the upper iff mine < other: one
+  // compare, on keys complemented in the upper thread (~a < ~b iff b < a).
   static __device__ __forceinline__ bool take(int32_t mine, int32_t other,
                                               bool is_hi, bool desc) {
-    return (is_hi ? (mine < other) : (other < mine)) != desc;
+    const int32_t flip = -static_cast<int32_t>(is_hi);
+    return ((other ^ flip) < (mine ^ flip)) != desc;
   }
 };
 
@@ -399,16 +406,18 @@ __device__ __forceinline__ void tj_relayout(TjRegs<E>& v, const TjLayout& from,
 
 // The stages at index bits hi .. lo (falling) of one merge over a block of
 // elements that arrive in layout `l`; `l` is the layout they are left in.
-// Bits above B + 4 run in groups of B on group layouts, one trip through
-// shared memory each; the rest on the contiguous layout, in shuffles and
-// registers. Directions as in tj_stages_directed.
-template <int E, typename X, bool kDirected>
+// Bits from B + kShuffles up run in groups of B on group layouts, one trip
+// through shared memory each; the rest on the contiguous layout, at most
+// kShuffles of them in shuffles (a warp's five lane bits at the most), then
+// in registers. Directions as in tj_stages_directed.
+template <int E, typename X, bool kDirected, int kShuffles = 5>
 __device__ __forceinline__ void tj_block_stages(TjRegs<E>& v, TjLayout& l,
                                                 int hi, int lo, int flat,
                                                 int k, int2* buffer) {
+  static_assert(kShuffles >= 0 && kShuffles <= 5, "a warp has five lane bits");
   constexpr int B = TjLog2<E>::value;
   const int t = threadIdx.x;
-  while (hi >= lo && hi > B + 4) {
+  while (hi >= lo && hi > B - 1 + kShuffles) {
     const int g = hi - B + 1;
     if (!tj_is_group(l, g)) {
       const TjLayout to = tj_layout_group<E>(t, g);

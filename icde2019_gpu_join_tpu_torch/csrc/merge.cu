@@ -23,18 +23,47 @@
 //
 // tj_merge_levels. What it computes does not depend on the TPU's tile: every
 // compared pair lies inside one output run and the parities come from the
-// global row. So a block takes exactly one output run (run_len << levels
-// elements, at most 2^14: 128 KB of dynamic shared memory, hence
-// cudaFuncSetAttribute), decodes on load (stored ^ -(input-run parity)), runs
-// each level's stages d = l .. 1 with swap = (hi < lo) ^ (output-run parity),
-// a __syncthreads() between stages, and re-encodes on store. What bounds it:
-// 16 bytes moved per element (0.64 ms at n = 2^27 at 3.35 TB/s) against
-// SUM log2 stages of exchanges in shared memory (27 at run_len 4096, levels
-// 2), each 4 loads and up to 4 stores of 4 bytes; the shared-memory traffic,
-// about 27 * 24 bytes per element, is what the time follows. One block per
-// SM at 128 KB, so a block's loads do not overlap another's stages. It still
-// runs on the shared-memory stage helpers of bitonic.cuh; the register
-// helpers below them are what kernel 7 uses.
+// global row. What bounds it: 16 bytes moved per element (0.64 ms at n = 2^27
+// at 3.35 TB/s) against SUM log2 stages of n / 2 exchanges (27 at run_len
+// 4096, levels 2). With the block's pairs held in shared memory every stage
+// was a full trip through it with a barrier (four loads and up to four stores
+// an exchange), and that traffic, not the integer work, was what the time
+// followed. So a block keeps its pairs in registers (bitonic.cuh, the second
+// half): kLevelsPairs a thread, 2^14 pairs in a block of 1024 threads when
+// the output run is that long. Shared memory is only the swizzled exchange
+// buffer between two register layouts, 8 bytes a pair. The pairs arrive in
+// the layout that runs the first level's first stages (a group layout: 4-byte
+// loads, a warp on 128 neighbouring bytes; for runs of at most 256 the
+// contiguous layout, 16-byte loads), decoded on the way (stored ^ -(input-run
+// parity)). Each level is one tj_block_stages call: the stages on a layout's
+// register bits run in registers, at most kLevelsShuffles of those on lane
+// bits in shuffles, and one trip through the buffer changes layout: five
+// trips at run_len 4096, levels 2 (group 9 -> group 5 -> contiguous; ->
+// group 10 -> group 6 -> contiguous), 24 stages in registers and 3 in
+// shuffles, where there were 27 trips. A shuffle stage costs more
+// operations than a trip (two shuffles, three integer operations and two
+// selects an element), so a level leaves only its last one or two lane bits
+// to shuffles; all five, with one trip less, was 2.7% slower (same card).
+// A level's direction bit, log2 of its output run, is an index bit of the
+// block (a register, lane or thread bit of the layout) while the output run
+// is shorter than the block, and the block's own parity at the last level of
+// a block that is one output run. Every level ends in the contiguous layout,
+// from which the pairs are re-encoded and stored in 16-byte vectors. An
+// output run shorter than 2^12 does not fill a block's warps at 16 pairs a
+// thread, so a block always takes 2^12 pairs or one output run, whichever is
+// longer: several output runs side by side then, whose stages never meet (no
+// stage runs on a bit at or above the run's length). n is a multiple of the
+// output run, not of the block: the rows past n of the last block are
+// neither loaded nor stored (whole runs, so the junk in their registers
+// meets no real pair). What the time follows now: the trips and shuffles,
+// the integer work (five operations an exchange in registers) and a block's
+// loads and stores, which nothing overlaps, since one block of 2^14 pairs
+// fills a multiprocessor's registers (1024 threads x 64). Measured beside it
+// on an NVIDIA H100 80GB HBM3 at 700.00 W and deleted (PERF.md, section 6):
+// 32 pairs a thread in 512 threads (one trip less, 2% slower), and blocks of
+// 2^13 pairs, two a multiprocessor, in clusters of two that exchange the last
+// level's first stage through distributed shared memory (3.15 ms beside 2.05:
+// the remote reads cost more than the overlap gains).
 //
 // tj_merge_level_plan. On the TPU the planner is traced array code around the
 // kernel; written as torch calls it is some fifteen small launches in each
@@ -74,6 +103,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda_runtime.h>
 
@@ -81,43 +111,80 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
 constexpr int kMaxBlockElems = 1 << 14;   // pairs a block holds: 128 KB
 
-__global__ void __launch_bounds__(kMaxThreads)
+// ---- the in-block levels ---------------------------------------------------
+
+constexpr int kLevelsPairs = 16;          // pairs a thread holds
+constexpr int kLogMinLevelsBlock = 12;    // pairs a block holds at the least
+constexpr int kLevelsShuffles = 2;        // stages a level runs in shuffles at the most
+
+// `levels` merge levels over one block of 1 << log_block pairs: one output
+// run, or several when they are shorter than a block.
+template <int E>
+__global__ void __launch_bounds__(kMaxBlockElems / E)
 merge_levels_kernel(const int32_t* __restrict__ sv,
                     const int32_t* __restrict__ pv, int32_t* __restrict__ osv,
-                    int32_t* __restrict__ opv, int log_run, int levels) {
-  extern __shared__ __align__(16) int32_t smem[];
-  const int span = 1 << (log_run + levels);
-  int32_t* key = smem;
-  int32_t* pay = smem + span;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * span;
+                    int32_t* __restrict__ opv, int64_t n, int log_run,
+                    int levels, int log_block) {
+  constexpr int B = TjLog2<E>::value;
+  extern __shared__ __align__(16) int2 exchange[];
+  const int t = threadIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) << log_block;
 
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const int64_t g = base + i;
-    const int32_t odd = static_cast<int32_t>((g >> log_run) & 1);
-    key[i] = sv[g] ^ -odd;   // stored -> actual
-    pay[i] = pv[g];
-  }
-  __syncthreads();
-
-  for (int lv = 0; lv < levels; ++lv) {
-    const int log_out = log_run + lv + 1;   // this level's output runs
-    for (int d = 1 << (log_out - 1); d >= 1; d >>= 1) {
-      for (int i = threadIdx.x; i < span / 2; i += blockDim.x) {
-        const int lo = tj_stage_lo(i, d);
-        const bool descending = ((base + lo) >> log_out) & 1;
-        tj_compare_exchange(key, pay, lo, lo + d, descending);
+  // Load in the layout of the first level's first stages (tj_block_stages
+  // then starts without a trip), stored -> actual by the input run's parity.
+  // The block starts on an output run, so the parity is the index's own bit.
+  TjLayout l = tj_layout_group<E>(
+      t, log_run > B - 1 + kLevelsShuffles ? log_run - B + 1 : 0);
+  TjRegs<E> v;
+  if (l.s0 == 0) {
+#pragma unroll
+    for (int q = 0; q < E / 4; ++q) {
+      const int i = tj_index(l, 4 * q);
+      int4 kk = make_int4(0, 0, 0, 0);
+      int4 pp = kk;
+      if (base + i < n) {   // n is a multiple of 256: a vector is in or out
+        kk = *reinterpret_cast<const int4*>(sv + base + i);
+        pp = *reinterpret_cast<const int4*>(pv + base + i);
       }
-      __syncthreads();
+      const int32_t odd = -static_cast<int32_t>((i >> log_run) & 1);
+      v.key[4 * q] = kk.x ^ odd; v.key[4 * q + 1] = kk.y ^ odd;
+      v.key[4 * q + 2] = kk.z ^ odd; v.key[4 * q + 3] = kk.w ^ odd;
+      v.pay[4 * q] = pp.x; v.pay[4 * q + 1] = pp.y;
+      v.pay[4 * q + 2] = pp.z; v.pay[4 * q + 3] = pp.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = tj_index(l, e);
+      const bool inside = base + i < n;
+      const int32_t odd = -static_cast<int32_t>((i >> log_run) & 1);
+      v.key[e] = (inside ? sv[base + i] : 0) ^ odd;
+      v.pay[e] = inside ? pv[base + i] : 0;
     }
   }
 
-  const int32_t odd = static_cast<int32_t>(blockIdx.x & 1);  // span == out run
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    osv[base + i] = key[i] ^ -odd;   // actual -> stored
-    opv[base + i] = pay[i];
+  // Level by level: output runs of 1 << log_out, descending where bit
+  // log_out of the global row is set. Inside the block that is an index bit;
+  // at a level whose output run is the block it is the block's parity.
+  for (int lv = 0; lv < levels; ++lv) {
+    const int log_out = log_run + lv + 1;
+    const int flat = static_cast<int>(base & (int64_t{1} << log_out));
+    tj_block_stages<E, TjSwapLess, true, kLevelsShuffles>(
+        v, l, log_out - 1, 0, flat, log_out, exchange);
+  }
+
+  // Every level ends in the contiguous layout: a thread's E neighbours lie
+  // in one output run. actual -> stored by that run's parity.
+  const int log_span = log_run + levels;
+  const int span_bit = static_cast<int>(base & (int64_t{1} << log_span));
+  const int32_t odd =
+      -static_cast<int32_t>(((span_bit | l.tpart) >> log_span) & 1);
+#pragma unroll
+  for (int e = 0; e < E; ++e) v.key[e] ^= odd;
+  if (base + l.tpart < n) {
+    tj_store_block(v, l, osv, opv, [base](int i) { return base + i; });
   }
 }
 
@@ -328,7 +395,8 @@ int launch_tiles(const void* meta, const void* sv, const void* pv, void* osv,
 // All launch on `stream`, do not synchronise, and return the CUDA error of
 // the launch (cudaErrorInvalidValue for shapes the kernel does not take).
 
-// sv, pv -> osv, opv, int32 [n]: runs of run_len -> runs of run_len << levels.
+// sv, pv -> osv, opv, int32 [n], 16-byte aligned: runs of run_len -> runs of
+// run_len << levels (at most 2^14); n a multiple of the output run.
 extern "C" int tj_merge_levels(const void* sv, const void* pv, void* osv,
                                void* opv, int64_t n, int64_t run_len,
                                int64_t levels, void* stream) {
@@ -336,20 +404,29 @@ extern "C" int tj_merge_levels(const void* sv, const void* pv, void* osv,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t span = run_len << levels;
-  if (span > kMaxBlockElems || n <= 0 || n % span != 0 ||
-      n / span > INT32_MAX) {
+  if (span > kMaxBlockElems || n <= 0 || n % span != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = allow_block_memory(merge_levels_kernel);
+  for (const void* p : {sv, pv, static_cast<const void*>(osv),
+                        static_cast<const void*>(opv)}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int log_span = log2_of(span);
+  const int log_block =
+      log_span > kLogMinLevelsBlock ? log_span : kLogMinLevelsBlock;
+  const int64_t blocks = (n + (int64_t{1} << log_block) - 1) >> log_block;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = merge_levels_kernel<kLevelsPairs>;
+  const cudaError_t err = allow_block_memory(kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads =
-      static_cast<int>(span / 2 < kMaxThreads ? span / 2 : kMaxThreads);
-  merge_levels_kernel<<<static_cast<unsigned int>(n / span), threads,
-                        span * 2 * sizeof(int32_t),
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned int>(blocks), (1 << log_block) / kLevelsPairs,
+           (size_t{1} << log_block) * sizeof(int2),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(sv), static_cast<const int32_t*>(pv),
-      static_cast<int32_t*>(osv), static_cast<int32_t*>(opv),
-      log2_of(run_len), static_cast<int>(levels));
+      static_cast<int32_t*>(osv), static_cast<int32_t*>(opv), n,
+      log2_of(run_len), static_cast<int>(levels), log_block);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,9 @@ kernels are in `csrc/merge.cu`. The cascade:
                  BASE_RUN (no hand kernel: the reference leaves this sort to
                  its compiler's library sort too);
   2. `merge_levels_vmem` (kernel `tj_merge_levels`): each thread block holds
-     one output run in shared memory and merges `levels` levels there;
+     one output run in registers (or several short ones) and merges `levels`
+     levels there, shared memory being only the exchange buffer between two
+     register layouts;
   3. `merge_level_hbm`: runs too long for a block merge by merge-path
      planning, two launches a level on the card with no host work between
      them. `merge_level_plan` (kernel `tj_merge_level_plan`, a thread an
@@ -74,7 +76,9 @@ HBM_TILE_OUT = HBM_WINDOW - 128   # valid output rows of a full tile
 CASCADE_MAX_N = 1 << 27
 
 # Elements (key, payload pairs) one thread block can hold: 2^14 pairs are
-# 128 KB of the 227 KB of shared memory a block may use; 2^15 do not fit.
+# half a multiprocessor's registers (1024 threads x 16 pairs) and, 8 bytes
+# each in the exchange buffer, 128 KB of the 227 KB of shared memory a block
+# may use; 2^15 fit neither.
 MAX_BLOCK_ELEMS = 1 << 14
 
 # Kernel launches since the last reset, by kernel; only the CUDA path adds.
@@ -239,16 +243,18 @@ def merge_levels_vmem(sv: torch.Tensor, pv: torch.Tensor, run_len: int,
     `tile_elems` is the reference's grid tile (n a multiple of
     min(tile_elems, n), which must hold an output run). The result does not
     depend on it: every compared pair lies inside one output run and the
-    parities come from the global row. On the card a thread block takes one
-    output run, so run_len << levels may be at most MAX_BLOCK_ELEMS there;
-    the plain version takes any size."""
+    parities come from the global row. On the card a thread block holds a
+    whole output run in registers, so run_len << levels may be at most
+    MAX_BLOCK_ELEMS there, and the kernel moves 16-byte vectors, so the
+    arrays start on a 16-byte boundary; the plain version takes any size."""
     span = _check_levels(sv, pv, run_len, levels, tile_elems)
     if not sv.is_cuda:
         return merge_levels_vmem_ref(sv, pv, run_len, levels, tile_elems)
     if span > MAX_BLOCK_ELEMS:
         raise ValueError(f"an output run of {span} pairs does not fit a "
-                         f"thread block's shared memory (at most "
+                         f"thread block's registers (at most "
                          f"{MAX_BLOCK_ELEMS}); use merge_level_hbm")
+    _check_aligned(("sv", sv), ("pv", pv))
     osv, opv = torch.empty_like(sv), torch.empty_like(pv)
     _launch("merge_levels", "merge_levels_vmem", (sv, pv, osv, opv),
             sv.shape[0], run_len, levels)

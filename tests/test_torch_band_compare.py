@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from icde2019_gpu_join_tpu.ops import band_compare_pallas as P
 from icde2019_gpu_join_tpu.ops.band_compare_pallas import banded_compare_sum as jax_sum
@@ -97,6 +98,43 @@ def _interval_inputs(rng, ch=4, wb=256):
             np.ones((ch, wb), np.int32))
 
 
+def _interval_overlap_inputs(rng, ch=4, wb=256):
+    """Intervals that overlap: a slot lies in several and gets their sum."""
+    lo = rng.randint(-8, 40, (ch, wb)).astype(np.int32)
+    hi = (lo + rng.randint(0, 12, (ch, wb))).astype(np.int32)
+    pos = rng.randint(-10, 52, (ch, 128)).astype(np.int32)
+    inb = (lo[:, None, :] <= pos[:, :, None]) & (pos[:, :, None] < hi[:, None, :])
+    assert inb.sum(2).max() > 1
+    return pos, lo, hi, _full(rng, (ch, wb)), _full(rng, (ch, wb)), _full(rng, (ch, wb))
+
+
+def _interval_inverted_inputs(rng, ch=4, wb=256):
+    """Half the intervals inverted (hi < lo): they hold nothing, though a
+    slot may lie between hi and lo."""
+    lo = rng.randint(-8, 40, (ch, wb)).astype(np.int32)
+    width = rng.randint(1, 10, (ch, wb))
+    hi = np.where(rng.rand(ch, wb) < 0.5, lo - width, lo + width).astype(np.int32)
+    pos = rng.randint(-20, 52, (ch, 128)).astype(np.int32)
+    return pos, lo, hi, _full(rng, (ch, wb)), _full(rng, (ch, wb)), _full(rng, (ch, wb))
+
+
+EXTREMES = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int32)
+
+
+def _interval_extreme_inputs(rng, ch=4, wb=256):
+    """pos, lo and hi drawn from INT32_MIN, INT32_MAX and their neighbours:
+    intervals as long as 2^32 - 1, inverted ones as far apart."""
+    pick = lambda shape: EXTREMES[rng.randint(0, EXTREMES.size, shape)]
+    return (pick((ch, 128)), pick((ch, wb)), pick((ch, wb)),
+            _full(rng, (ch, wb)), _full(rng, (ch, wb)), _full(rng, (ch, wb)))
+
+
+def _interval(make):
+    return (band_compare.banded_interval_select,
+            band_compare.banded_interval_select_ref,
+            P.banded_interval_select, make)
+
+
 KERNELS = {
     # name: (port wrapper, its plain version, JAX Pallas kernel, inputs)
     "per_s": (band_compare.banded_compare_per_s,
@@ -105,9 +143,10 @@ KERNELS = {
     "first": (band_compare.banded_compare_first,
               band_compare.banded_compare_first_ref,
               P.banded_compare_first, _first_inputs),
-    "interval": (band_compare.banded_interval_select,
-                 band_compare.banded_interval_select_ref,
-                 P.banded_interval_select, _interval_inputs),
+    "interval": _interval(_interval_inputs),
+    "interval_overlap": _interval(_interval_overlap_inputs),
+    "interval_inverted": _interval(_interval_inverted_inputs),
+    "interval_extremes": _interval(_interval_extreme_inputs),
 }
 
 
@@ -176,3 +215,45 @@ def test_reset_launches_zeroes_every_kernel():
     band_compare.LAUNCHES["banded_compare_first"] += 3
     band_compare.reset_launches()
     assert set(band_compare.LAUNCHES.values()) == {0}
+
+
+# ---- the interval kernel's test on the card, modelled in numpy ---------------
+
+def _unsigned_interval_test(pos, lo, hi):
+    """`tj_banded_interval_select`'s test (csrc/band_compare.cu): one
+    subtraction and one unsigned compare, (uint32)(pos - lo) < len, with
+    len = hi > lo ? hi - lo : 0 computed when the row is staged."""
+    pos, lo, hi = (np.asarray(x, np.int32) for x in (pos, lo, hi))
+    length = np.where(hi > lo, hi.view(np.uint32) - lo.view(np.uint32),
+                      np.uint32(0))
+    return (pos.view(np.uint32) - lo.view(np.uint32)) < length
+
+
+_I32 = st.one_of(st.sampled_from([int(x) for x in EXTREMES]),
+                 st.integers(-2**31, 2**31 - 1), st.integers(-6, 6))
+
+
+@settings(max_examples=400, deadline=None, database=None, derandomize=True)
+@given(st.lists(st.tuples(_I32, _I32, _I32), min_size=1, max_size=64))
+def test_unsigned_interval_test_is_the_signed_one(triples):
+    pos, lo, hi = (np.array(x, np.int64).astype(np.int32) for x in zip(*triples))
+    with np.errstate(over="ignore"):
+        got = _unsigned_interval_test(pos, lo, hi)
+    np.testing.assert_array_equal(got, (lo <= pos) & (pos < hi))
+
+
+@pytest.mark.parametrize("make", [_interval_inputs, _interval_overlap_inputs,
+                                  _interval_inverted_inputs,
+                                  _interval_extreme_inputs])
+def test_unsigned_interval_model_gives_the_plain_sums(make):
+    """The kernel's arithmetic end to end, in numpy: the unsigned test, then
+    every hit adds, mod 2^32; equal to the plain version on every input."""
+    pos, lo, hi, *pays = make(np.random.RandomState(11))
+    with np.errstate(over="ignore"):
+        hit = _unsigned_interval_test(pos[:, :, None], lo[:, None, :],
+                                      hi[:, None, :])
+    want = band_compare.banded_interval_select_ref(
+        *map(torch.from_numpy, (pos, lo, hi, *pays)))
+    for p, w in zip(pays, want):
+        got = (hit * p[:, None, :].astype(np.int64)).sum(2).astype(np.int32)
+        np.testing.assert_array_equal(got, w.numpy())

@@ -240,3 +240,19 @@ def test_a_geometry_that_does_not_fit_is_reported_not_failed(capsys):
                     "--levels", "1", "--tile", "12"]) == 1
     line, = _lines(capsys)
     assert not line["ok"] and line["expected_to_fit"]
+
+
+def test_empty_launch_is_no_probe():
+    """The launch-floor meter: an output block as a construct allocates it,
+    no probe kernel counted, a time by the probes' own clock; it takes the
+    blocks the constructs take and nothing else."""
+    (a,) = cp._blocks(cp.BLOCK_ROWS, 1, "cpu", 0)
+    cp.reset_launches()
+    o = cp.empty_launch(a)
+    assert o.shape == a.shape and o.dtype == a.dtype
+    assert cp.LAUNCHES == {"construct_probes": 0}
+    assert "empty" in cp.ENTRY_POINTS
+    assert "empty" not in {name for name, _ in cp.PROBES}
+    assert cp.launch_floor_ms("cpu") >= 0.0
+    with pytest.raises(ValueError):
+        cp.empty_launch(a[:64])

@@ -66,6 +66,9 @@ def test_constants_match_jax():
     (8192, 256, 2, 1024, -50, 50),            # several tiles, odd parities
     (4096, 128, 1, 4096, -(2**31), 2**31),    # full-range keys, one tile
     (8192, 512, 2, 8192, 0, 64),              # a tile of several output runs
+    (16384, 2048, 2, 8192, -50, 50),          # output runs of 2^13
+    (24576, 2048, 2, 8192, 0, 64),            # an odd number of output runs
+    (8192, 256, 3, 2048, 0, 64),              # three levels, ties at each
 ])
 def test_merge_levels_vmem_equals_jax(n, run, levels, jax_tile, lo, hi,
                                       lane_transpose):
@@ -75,13 +78,17 @@ def test_merge_levels_vmem_equals_jax(n, run, levels, jax_tile, lo, hi,
         jnp.asarray(es), jnp.asarray(ep), run, levels, tile_elems=jax_tile,
         interpret=True, lane_transpose=lane_transpose)
     # the result does not depend on the tile: the reference's, a larger one
-    # and the default all give the reference's arrays
-    for tile in (jax_tile, 4 * n, merge.DEVICE_VMEM_TILE):
+    # and the default all give the reference's arrays (where n is a multiple
+    # of the tile, as the contract asks)
+    tiles = [tile for tile in (jax_tile, 4 * n, merge.DEVICE_VMEM_TILE)
+             if merge._is_pow2(min(tile, n)) and n % min(tile, n) == 0]
+    assert jax_tile in tiles
+    for tile in tiles:
         _assert_pairs_equal(
             merge.merge_levels_vmem(*_t(es, ep), run, levels, tile_elems=tile),
             want)
-    _assert_pairs_equal(merge.merge_levels_vmem_ref(*_t(es, ep), run, levels),
-                        want)
+    _assert_pairs_equal(
+        merge.merge_levels_vmem_ref(*_t(es, ep), run, levels, tiles[-1]), want)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -500,3 +507,190 @@ def test_check_aligned_names_a_view_off_a_16_byte_boundary():
     merge._check_aligned(("sv", whole), ("pv", whole[4:]))
     with pytest.raises(ValueError, match="pv.*16-byte"):
         merge._check_aligned(("sv", whole), ("pv", whole[1:]))
+
+
+# ---- kernel 6 on the card: a numpy model of its registers --------------------
+#
+# `tj_merge_levels` (csrc/merge.cu) keeps a block's pairs in registers and
+# runs each level through the layout helpers of csrc/bitonic.cuh. No CUDA
+# compiler runs with these tests, so the model below renders those helpers in
+# numpy, function for function and under the same names: which element a
+# thread's slot holds in a layout, which stages a layout runs in registers and
+# which in shuffles, where a level's direction comes from, the decode on load,
+# the re-encode on store and the rows past n of a ragged last block. A block
+# is a [threads, E] array of keys and one of payloads.
+
+class _Layout:
+    def __init__(self, tpart, s0, s1):
+        self.tpart, self.s0, self.s1 = tpart, s0, s1
+
+    def is_group(self, g):
+        return self.s0 == g and self.s1 == g + 2
+
+    def index(self, E):
+        """[threads, E]: the element each slot of each thread holds."""
+        e = np.arange(E)
+        return (self.tpart[:, None] | ((e & 3) << self.s0)
+                | ((e >> 2) << self.s1))
+
+
+def _layout_group(t, g, B):
+    return _Layout((t & ((1 << g) - 1)) | ((t >> g) << (g + B)), g, g + 2)
+
+
+def _swap_less_regs(ka, pa, kb, pb, desc):
+    swap = (kb < ka) != desc
+    return (np.where(swap, kb, ka), np.where(swap, pb, pa),
+            np.where(swap, ka, kb), np.where(swap, pa, pb))
+
+
+def _stages_here(key, pay, l, hi, lo, lanes, dirs, B):
+    """tj_stages_here: first the lane bits B + 4 .. B in shuffles (the
+    contiguous layout only), then the layout's register bits in [lo, hi],
+    falling. `dirs(e)` is the per-thread bool array of slot e's direction."""
+    t = np.arange(key.shape[0])
+    E = 1 << B
+    if lanes:
+        bit = hi
+        while bit >= B and bit >= lo:
+            assert bit <= B + 4, "a shuffle reaches only the warp's lanes"
+            x = 1 << (bit - B)
+            is_hi = ((t >> (bit - B)) & 1).astype(bool)
+            ok, op = key[t ^ x], pay[t ^ x]          # __shfl_xor_sync
+            for e in range(E):
+                mine, other = key[:, e], ok[:, e]
+                take = np.where(is_hi, mine < other, other < mine) != dirs(e)
+                key[:, e] = np.where(take, other, mine)
+                pay[:, e] = np.where(take, op[:, e], pay[:, e])
+            bit -= 1
+    for R in range(B - 1, -1, -1):
+        bit = l.s0 + R if R < 2 else l.s1 + R - 2
+        if lo <= bit <= hi:
+            for e in range(E):
+                if e & (1 << R) == 0:
+                    f = e | (1 << R)
+                    key[:, e], pay[:, e], key[:, f], pay[:, f] = _swap_less_regs(
+                        key[:, e].copy(), pay[:, e].copy(), key[:, f].copy(),
+                        pay[:, f].copy(), dirs(e))
+
+
+def _stages_directed(key, pay, l, hi, lo, lanes, flat, k, B):
+    """tj_stages_directed<.., true>: the direction bit k as a register bit of
+    the layout (per slot) or as a bit of flat | the thread's part."""
+    if l.s0 <= k < l.s0 + 2:
+        dirs = lambda e: np.full(key.shape[0], bool((e >> (k - l.s0)) & 1))
+    elif l.s1 <= k < l.s1 + B - 2:
+        dirs = lambda e: np.full(key.shape[0], bool((e >> (k - l.s1 + 2)) & 1))
+    else:
+        desc = (((flat | l.tpart) >> k) & 1).astype(bool)
+        dirs = lambda e: desc
+    _stages_here(key, pay, l, hi, lo, lanes, dirs, B)
+
+
+def _relayout(key, pay, frm, to, E):
+    """tj_relayout: through the exchange buffer, by element index (the
+    swizzle is a bijection of the buffer and cancels)."""
+    bk, bp = np.empty(key.size, key.dtype), np.empty(pay.size, pay.dtype)
+    bk[frm.index(E)], bp[frm.index(E)] = key, pay
+    key[...], pay[...] = bk[to.index(E)], bp[to.index(E)]
+
+
+def _block_stages(key, pay, l, hi, lo, flat, k, B, trips, shuffles=5):
+    """tj_block_stages: bits from B + shuffles up in groups of B on group
+    layouts, one trip each, the rest on the contiguous layout. Returns the
+    layout left."""
+    t = np.arange(key.shape[0])
+    E = 1 << B
+    while hi >= lo and hi > B - 1 + shuffles:
+        g = hi - B + 1
+        if not l.is_group(g):
+            to = _layout_group(t, g, B)
+            _relayout(key, pay, l, to, E)
+            trips.append(g)
+            l = to
+        _stages_directed(key, pay, l, hi, lo, False, flat, k, B)
+        hi = g - 1
+    if hi < lo:
+        return l
+    if not l.is_group(0):
+        to = _layout_group(t, 0, B)
+        _relayout(key, pay, l, to, E)
+        trips.append(0)
+        l = to
+    _stages_directed(key, pay, l, hi, lo, True, flat, k, B)
+    return l
+
+
+def _merge_levels_model(sv, pv, run_len, levels, E=16, log_min_block=12,
+                        shuffles=2):
+    """`merge_levels_kernel<E>` block by block; returns (osv, opv, the
+    layouts each block's trips through the exchange buffer led to)."""
+    n = sv.size
+    B = E.bit_length() - 1
+    log_run = run_len.bit_length() - 1
+    log_span = log_run + levels
+    log_block = max(log_span, log_min_block)
+    threads = (1 << log_block) // E
+    assert threads % 32 == 0 and threads <= 1024, "whole warps, one block"
+    osv, opv = np.full_like(sv, 0x55555555), np.full_like(pv, 0x55555555)
+    t = np.arange(threads)
+    trips = []
+    for block in range(-(-n // (1 << log_block))):
+        base = block << log_block
+        l = _layout_group(
+            t, log_run - B + 1 if log_run > B - 1 + shuffles else 0, B)
+        i = l.index(E)
+        inside = base + i < n
+        at = np.where(inside, base + i, 0)
+        odd = -((i >> log_run) & 1)
+        key = (np.where(inside, sv[at], 0) ^ odd).astype(np.int32)
+        pay = np.where(inside, pv[at], 0).astype(np.int32)
+        trips = []
+        for lv in range(levels):
+            log_out = log_run + lv + 1
+            flat = base & (1 << log_out)
+            l = _block_stages(key, pay, l, log_out - 1, 0, flat, log_out, B,
+                              trips, shuffles)
+        assert l.is_group(0)
+        odd = -((((base & (1 << log_span)) | l.tpart) >> log_span) & 1)
+        key ^= odd[:, None].astype(np.int32)
+        keep = base + l.tpart < n          # a thread's E neighbours, or none
+        at = (base + l.index(E))[keep]
+        osv[at], opv[at] = key[keep], pay[keep]
+    return osv, opv, trips
+
+
+@pytest.mark.parametrize("pairs,shuffles", [(16, 2), (16, 5), (32, 2)])
+@pytest.mark.parametrize("n,run,levels,lo,hi", [
+    (1 << 15, 4096, 2, -(2**31), 2**31),   # the cascade's shape, two blocks
+    (1 << 15, 4096, 2, 0, 64),             # ties at every stage
+    (3 << 14, 2048, 3, 0, 64),             # n / span odd, three levels
+    (5 << 13, 2048, 2, -50, 50),           # span 2^13, n / span odd
+    (1 << 14, 8192, 1, -(2**31), 2**31),   # one level, the block's parity
+    (7 << 11, 256, 3, 0, 64),              # span 2048: a ragged last block
+    (3 << 8, 128, 1, -5, 5),               # 256-pair runs, most of a block idle
+    (1 << 14, 512, 5, 0, 64),              # five levels in one block
+    (1 << 13, 128, 3, 0, 64),              # runs of 128: the contiguous load
+])
+def test_merge_levels_register_model_equals_plain(n, run, levels, lo, hi, pairs,
+                                                  shuffles):
+    """The register network, level by level as the card runs it, gives the
+    plain version's arrays: keys and payloads, ties included."""
+    sv, pv = make(n, np.random.RandomState(n + run + levels), lo=lo, hi=hi)
+    es, ep = encode_runs(sv, pv, run)
+    got = _merge_levels_model(es, ep, run, levels, E=pairs, shuffles=shuffles)
+    want = merge.merge_levels_vmem_ref(*_t(es, ep), run, levels,
+                                       tile_elems=run << levels)
+    _assert_pairs_equal(got[:2], want)
+
+
+def test_merge_levels_register_model_trips():
+    """At the cascade's shape (run 4096, 2 levels) a block makes five trips
+    through the exchange buffer with two lane bits a level left to shuffles,
+    four with all five, three at 32 pairs a thread; the shared-memory body
+    made 27."""
+    sv, pv = make(1 << 14, np.random.RandomState(3), lo=0, hi=1000)
+    es, ep = encode_runs(sv, pv, 4096)
+    assert _merge_levels_model(es, ep, 4096, 2)[2] == [5, 0, 10, 6, 0]
+    assert _merge_levels_model(es, ep, 4096, 2, shuffles=5)[2] == [0, 10, 6, 0]
+    assert _merge_levels_model(es, ep, 4096, 2, E=32, shuffles=5)[2] == [0, 9, 0]
