@@ -99,6 +99,18 @@ run of all phases can pass. The phases:
              (into 2^24, multiset) and late aggregate at config 1 against the
              numpy oracles; `probe_mode="sort_merge"` at 2^27 against the
              checked-in value; `global_ht_join_aggregate` at config 1;
+  streaming  the streamed probe through `clustered_probe_join`: R, the
+             headline's 2^27 keys, on the card; S 2^29 rows in host memory,
+             four copies of the headline's S with payloads 1-4; routed
+             "streaming" with the resident limit at 2^27; 4 segments, then 6
+             (a padded tail); 10 x the checked-in value, every upload from
+             pinned memory, best of 3; then the overlap tool's line;
+  coprocess  host co-processing through `clustered_probe_join`: the
+             headline's relations from host memory under the default
+             configuration (128,000,001 < 2^27 routes them there), against
+             the checked-in value, and the 2^22 Zipf relations with the
+             limit at 2^21 against the C++ oracle, best of 3; the overlap
+             tool's line;
   late       `ClusteredJoin.late_aggregate` at 2^24 per side with 4 R and 2 S
              columns, against the numpy oracle;
   pipeline   BASELINE.json config 3, 2^24 R x 2^29 S, 64 groups, filter
@@ -107,7 +119,8 @@ run of all phases can pass. The phases:
              device memory; and the general numpy oracle at 2^20
              duplicate-key R x 2^23 S.
 
-The headline, sorts, materialize, partitioned, late and pipeline phases, and
+The headline, sorts, materialize, partitioned, streaming, coprocess, late and
+pipeline phases, and
 the four phases of the sort tools, each zero the kernels' launch counts just
 before they drive their path, read them just after, and fail if a kernel of
 the path did not launch. Then one JSON
@@ -120,7 +133,9 @@ integer rate (SMs x 64 int32 lanes x the SM clock `nvidia-smi` reports;
 that computes the tile sort on distinct keys (`torch.sort` along dim 1 +
 gather); no single call computes any of the other functions, so it is null
 there; the whole merge sort has `torch.sort` + gather beside it in the kernel
-merge phase. Kernel 7's entry also carries its plan kernel's time
+merge phase. Kernel 1's entry also carries its launches in the streamed
+and the co-processed call (`launches_streaming`, `launches_coprocess`).
+Kernel 7's entry also carries its plan kernel's time
 (`plan_ms`, beside the torch planner's wall time) and launches
 (`plan_launches`) and window 4096 at both levels; kernel 5's its time and bound at config 2's plan. The probe ladder is one entry: its launches are the probe
 kernels run, its times their sums, with a map per probe. Last the result line `{"ok": true, "device": {...}}`.
@@ -143,15 +158,18 @@ from icde2019_gpu_join_tpu_torch import datagen
 from icde2019_gpu_join_tpu_torch.benchmarks import (construct_probes,
                                                     experimental_sort,
                                                     merge_fix_validate,
-                                                    merge_sort_bench)
+                                                    merge_sort_bench,
+                                                    overlap_bench)
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
-from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
+from icde2019_gpu_join_tpu_torch.models import (ClusteredJoin,
+                                                clustered_probe_join,
+                                                dispatch_regime, pipelines)
 from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
                                              merge, perfect_hash, probe_ranges)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.relation import Relation
-from icde2019_gpu_join_tpu_torch.utils import datasets, oracle
+from icde2019_gpu_join_tpu_torch.utils import datasets, oracle, placement
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -225,7 +243,10 @@ PROBE_ELEMENTS = {
     "min_dma_compute": 2 << 15, "full_merge_T": 3 << 14, "merge_T_dm": 3 << 14}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64
-CARD = {}                   # "int_ops_per_s", set by phase_report
+CARD = {}                   # "int_ops_per_s", "line", set by phase_report
+# S of the streamed leg: this many copies of the headline's S (copy c has
+# payload c + 1)
+STREAM_COPIES = 4
 
 
 def _oracle_value(scale: int, skew: float) -> int:
@@ -420,6 +441,7 @@ def phase_report() -> str:
     ).stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     CARD["int_ops_per_s"] = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
+    CARD["line"] = smi
     kind = torch.cuda.get_device_name(0)
     print(f"[report] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}; {sms} SMs x "
@@ -1106,6 +1128,17 @@ def _max_rounds(r: Relation, s: Relation, w: int) -> int:
     return int(((hi - lo + (w - 1)) // w).max())
 
 
+def _zipf_tables():
+    """2^(MID_SCALE - 2) rows a side, S Zipf z=1.05 over R's keys,
+    full-range payloads: (R keys, R payloads, S keys, S payloads), numpy."""
+    n = 1 << (MID_SCALE - 2)
+    rk, sk = datasets.make_pk_fk(n, n, skew=1.05, seed=SEED)
+    rng = np.random.RandomState(SEED)
+    rp = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    sp = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    return rk, rp, sk, sp
+
+
 def phase_mid():
     engine = ClusteredJoin(device=DEVICE)
     n = 1 << MID_SCALE
@@ -1118,11 +1151,7 @@ def phase_mid():
     if uni != want:
         raise AssertionError(f"2^{MID_SCALE} uniform: {uni} != oracle {want}")
 
-    n = 1 << (MID_SCALE - 2)
-    rk, sk = datasets.make_pk_fk(n, n, skew=1.05, seed=SEED)
-    rng = np.random.RandomState(SEED)
-    rp = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
-    sp = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    rk, rp, sk, sp = _zipf_tables()
     r, s = _relations(rk, rp, sk, sp)
     got = engine.aggregate(r, s).aggregate
     want = datagen.oracle_join_aggregate(rk, rp, sk, sp)
@@ -1415,11 +1444,7 @@ def _partitioned_config1(lines: list) -> dict:
 def _partitioned_zipf(lines: list):
     """"pallas" at 2^22 Zipf z=1.05, and the global hash table built on
     the Zipf side, whose chains overflow into the banded fallback."""
-    n = 1 << (MID_SCALE - 2)
-    zk_r, zk_s = datasets.make_pk_fk(n, n, skew=1.05, seed=SEED)
-    zrng = np.random.RandomState(SEED)
-    zp_r = zrng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
-    zp_s = zrng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    zk_r, zp_r, zk_s, zp_s = _zipf_tables()
     zr, zs = _relations(zk_r, zp_r, zk_s, zp_s)
     ranges = ClusteredJoin(EngineConfig(probe_mode="pallas"), device=DEVICE)
     got = ranges.aggregate(zr, zs).aggregate
@@ -1494,6 +1519,146 @@ def phase_partitioned(big) -> tuple:
     launches, at_config2 = _partitioned_config2(lines, big)
     print("[partitioned] " + "; ".join(lines))
     return launches, at_config2
+
+
+def _regime_call(r: Relation, s: Relation, cfg: EngineConfig, regime: str,
+                 want: int, what: str) -> dict:
+    """`clustered_probe_join` on the card, routed to `regime`, equal to
+    `want`: the first call (its wall seconds, kernel launches, host tensors
+    uploaded by memory kind, peak device memory), then best of REPS with the
+    best call's phases."""
+    got = dispatch_regime(r.num_rows, s.num_rows, cfg)
+    if got != regime:
+        raise AssertionError(f"dispatch_regime said {got!r}, not {regime!r}")
+    call = lambda: clustered_probe_join(r, s, cfg, device=DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    placement.reset_copies()
+    t0 = time.perf_counter()
+    res, launches = _launched(call)
+    first = time.perf_counter() - t0
+    _require(launches, regime, "banded_compare_sum")
+    copies = dict(placement.COPIES)
+    if copies["pageable"] or not copies["pinned"]:
+        raise AssertionError(f"{regime}: uploads not all from pinned host "
+                             f"memory: {copies}")
+    out = {"first_s": first, "launches": launches, "copies": copies,
+           "peak": torch.cuda.max_memory_allocated(), "best_s": float("inf")}
+    for res in [res] + [None] * REPS:
+        if res is None:
+            t0 = time.perf_counter()
+            res = call()
+            wall = time.perf_counter() - t0
+            if wall < out["best_s"]:
+                out["best_s"], out["phases"] = wall, _phases_of(res)
+        if res.aggregate != want:
+            raise AssertionError(f"{what}: {res.aggregate} != {want}")
+    return out
+
+
+def _phases_of(res) -> str:
+    return ", ".join(f"{p.name} {p.seconds * 1e3:.3f} ms"
+                     for p in res.timer.phases)
+
+
+def _regime_line(out: dict) -> str:
+    return (f"first call {out['first_s'] * 1e3:.3f} ms, best of {REPS} "
+            f"{out['best_s'] * 1e3:.3f} ms ({out['phases']}), "
+            f"{out['copies']['pinned']} pinned uploads on the copy stream, "
+            f"kernel 1 launches {out['launches']['banded_compare_sum']}, peak "
+            f"device memory {out['peak'] / 2**30:.2f} GiB")
+
+
+def phase_streaming(big) -> int:
+    """The streamed probe: R, the headline's keys with payloads 1, on the
+    card; S = STREAM_COPIES copies of the headline's S keys in host memory,
+    copy c with payload c + 1, so that a segment probed twice, skipped or
+    overwritten changes the sum (10 x the headline's value for 4 copies).
+    Routed by `dispatch_regime` with the resident limit at 2^HEADLINE_SCALE,
+    at the default segments (2^HEADLINE_SCALE rows) and at 3 x
+    2^(HEADLINE_SCALE - 2) rows (6 segments for 4 copies, the last a quarter
+    segment padded in place); then the overlap tool's streaming leg on the
+    same relations. Returns kernel 1's launches in the first call."""
+    rk, sk, r_keys, _ = big
+    n = 1 << HEADLINE_SCALE
+    t0 = time.perf_counter()
+    r = Relation(r_keys, torch.ones_like(r_keys))
+    s_keys = np.tile(sk, STREAM_COPIES)
+    s_pay = np.repeat(np.arange(1, STREAM_COPIES + 1, dtype=np.int32), n)
+    s = Relation.from_numpy(s_keys, s_pay, device="cpu")
+    t_data = time.perf_counter() - t0
+    weight = STREAM_COPIES * (STREAM_COPIES + 1) // 2
+    want = int(wrap_i32(torch.tensor(_oracle_value(HEADLINE_SCALE, 0.0)
+                                     * weight)))
+    lines, first = [], None
+    for seg in (n, 3 << (HEADLINE_SCALE - 2)):
+        cfg = EngineConfig(resident_limit_rows=n,
+                           segment_rows=None if seg == n else seg)
+        out = _regime_call(r, s, cfg, "streaming", want,
+                           f"streaming, segments of {seg}")
+        nseg = -(-s.num_rows // seg)
+        if out["copies"]["pinned"] != 2 * nseg:
+            raise AssertionError(f"streaming: {out['copies']} uploads for "
+                                 f"{nseg} segments")
+        first = first or out["launches"]["banded_compare_sum"]
+        lines.append(f"segments of {seg} rows ({nseg}) = {want} ({weight} x "
+                     f"oracle); " + _regime_line(out))
+    leg = overlap_bench.streaming_leg(rk, np.ones(n, np.int32), s_keys, s_pay,
+                                      segments=STREAM_COPIES, expect=want,
+                                      device=DEVICE)
+    if not leg["correct"]:
+        raise AssertionError(f"overlap streaming leg: {leg}")
+    print(f"[streaming] {CARD['line']}; R 2^{HEADLINE_SCALE} on the card x S "
+          f"{s.num_rows} rows in host memory; " + "; ".join(lines)
+          + f"; data {t_data:.1f}s")
+    print(f"[streaming] {CARD['line']}; overlap {json.dumps(leg)}")
+    return first
+
+
+def _coprocess_config() -> EngineConfig:
+    """The default configuration where the headline's rows exceed its
+    resident limit (2^27 > 128,000,001), as on the card; at a smaller
+    HEADLINE_SCALE a limit below the headline's rows, so it routes the same."""
+    cfg = EngineConfig()
+    if (1 << HEADLINE_SCALE) <= cfg.resident_limit_rows:
+        cfg = EngineConfig(resident_limit_rows=1 << (HEADLINE_SCALE - 1))
+    return cfg
+
+
+def phase_coprocess(big) -> int:
+    """Host co-processing: the headline's relations (payloads 1) as CPU
+    relations under `_coprocess_config()`, against the checked-in oracle;
+    the overlap tool's co-processing leg on them; then the Zipf z=1.05
+    relations of `_zipf_tables` (full-range payloads) with the resident
+    limit at half their rows, against the C++ oracle. Returns kernel 1's
+    launches in the first call."""
+    rk, sk, _, _ = big
+    ones = np.ones(1 << HEADLINE_SCALE, np.int32)
+    r = Relation.from_numpy(rk, ones, device="cpu")
+    s = Relation.from_numpy(sk, ones, device="cpu")
+    cfg = _coprocess_config()
+    want = _oracle_value(HEADLINE_SCALE, 0.0)
+    out = _regime_call(r, s, cfg, "coprocess", want, "coprocess")
+    leg = overlap_bench.coprocess_leg(rk, ones, sk, ones, cfg, expect=want,
+                                      device=DEVICE)
+    if not leg["correct"]:
+        raise AssertionError(f"overlap coprocess leg: {leg}")
+    print(f"[coprocess] {CARD['line']}; 2^{HEADLINE_SCALE} x "
+          f"2^{HEADLINE_SCALE} from host memory, resident limit "
+          f"{cfg.resident_limit_rows} = {want} (oracle), {leg['batches']} "
+          f"batches, {leg['pairs']} pairs; " + _regime_line(out))
+    print(f"[coprocess] {CARD['line']}; overlap {json.dumps(leg)}")
+
+    zk_r, zp_r, zk_s, zp_s = _zipf_tables()
+    zcfg = EngineConfig(resident_limit_rows=zk_r.size // 2)
+    zwant = datagen.oracle_join_aggregate(zk_r, zp_r, zk_s, zp_s)
+    zout = _regime_call(Relation.from_numpy(zk_r, zp_r, device="cpu"),
+                        Relation.from_numpy(zk_s, zp_s, device="cpu"), zcfg,
+                        "coprocess", zwant, "coprocess zipf 1.05")
+    print(f"[coprocess] {CARD['line']}; 2^{MID_SCALE - 2} zipf1.05, "
+          f"full-range payloads, resident limit {zcfg.resident_limit_rows} = "
+          f"{zwant} (C++ oracle); " + _regime_line(zout))
+    return out["launches"]["banded_compare_sum"]
 
 
 def phase_late():
@@ -1604,9 +1769,11 @@ def _timed(name, fn, *args):
 
 PHASES = ("kernel", "kernel ranges", "kernel merge", "kernel sort tiles",
           "kernel stage", "probes", "sort tools", "mid", "headline", "sorts",
-          "materialize", "partitioned", "late", "pipeline")
+          "materialize", "partitioned", "streaming", "coprocess", "late",
+          "pipeline")
 # phases that join the headline's 2^27 relations, which `headline` makes
-NEED_HEADLINE = ("sorts", "materialize", "partitioned")
+NEED_HEADLINE = ("sorts", "materialize", "partitioned", "streaming",
+                 "coprocess")
 
 
 def _partial(names) -> int:
@@ -1626,7 +1793,8 @@ def _partial(names) -> int:
              "sort tools": phase_sort_tools, "mid": phase_mid,
              "late": phase_late, "pipeline": phase_pipeline}
     with_big = {"sorts": phase_sorts, "materialize": phase_materialize,
-                "partitioned": phase_partitioned}
+                "partitioned": phase_partitioned,
+                "streaming": phase_streaming, "coprocess": phase_coprocess}
     big = None
     ran = []
     for name in PHASES:
@@ -1671,6 +1839,11 @@ def main(argv=None):
     fast, ring = _timed("materialize", phase_materialize, big)
     part, at_config2 = _timed("partitioned", phase_partitioned, big)
     kstats["probe_aggregate_ranges"].update(at_config2)
+    # kernel 1's launches in the out-of-memory regimes, beside the headline's
+    kstats["banded_compare_sum"]["launches_streaming"] = _timed(
+        "streaming", phase_streaming, big)
+    kstats["banded_compare_sum"]["launches_coprocess"] = _timed(
+        "coprocess", phase_coprocess, big)
     del big
     torch.cuda.empty_cache()
     _timed("late", phase_late)

@@ -3,7 +3,12 @@ NVIDIA H100.
 
 Same module names as the JAX package; plain functions on int32 tensors, an
 explicit device on `Relation` and `ClusteredJoin`, seeds passed to the
-generators. Imports torch and numpy, never JAX. The ten kernels (the banded
+generators. Imports torch and numpy, never JAX. Three regimes, picked by the
+size dispatcher `models.clustered_probe_join` (`dispatch_regime`): the
+in-memory `ClusteredJoin`; the streamed probe (`models/streaming.py`: R
+resident, S streamed from pinned host memory in segments on a copy stream);
+and host co-processing (`models/coprocess.py`: both sides partitioned on the
+host, joined pair by pair on the card). The ten kernels (the banded
 probe's four compare/select kernels, the stream-range probe, the merge
 sort's in-block and merge-path levels with their planner, and the sort
 tools' tile sort, stage meter and construct probes) are CUDA C++ (`csrc/`),

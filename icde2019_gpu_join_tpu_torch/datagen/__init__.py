@@ -1,7 +1,12 @@
-"""Dataset generator and host oracle: ctypes bindings over the C++ host
-engine, with numpy fallbacks that match the same distributions (not
+"""Dataset generator, host oracle and host runtime: ctypes bindings over the
+C++ host engine, with numpy fallbacks that match the same distributions (not
 bit-identical; the checked-in oracle values under `data/` hold only for the
 native generator).
+
+The host runtime serves the out-of-memory regimes: the OpenMP radix
+pre-partitioner (`host_partition`), the threaded staging copy
+(`staging_copy`) and the knapsack batch scheduler (`knapsack_batches`)
+(reference src/partition-primitives.cu:40-469 analogs).
 
 The library is built from the JAX package's source,
 `icde2019_gpu_join_tpu/datagen/native/host_engine.cpp`, read in place into
@@ -13,7 +18,7 @@ primitives as the reference (src/generator_ETHZ.cu).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -38,6 +43,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32p, i32p, ctypes.c_uint64, i32p, i32p, ctypes.c_uint64,
     ]
     lib.tj_oracle_join_aggregate.restype = ctypes.c_int32
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.tj_host_partition.argtypes = [
+        i32p, i32p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        i32p, i32p, u64p, u64p,
+    ]
+    lib.tj_host_partition.restype = None
+    lib.tj_staging_copy.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+    ]
+    lib.tj_staging_copy.restype = None
+    lib.tj_knapsack_batches.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.tj_knapsack_batches.restype = ctypes.c_int
     return lib
 
 
@@ -160,3 +180,90 @@ def host_oracle_aggregate(
         from icde2019_gpu_join_tpu_torch.utils import oracle
         got = oracle.join_aggregate(r_keys, r_pay, s_keys, s_pay)
     return got
+
+
+# --------------------------- host runtime ----------------------------------
+
+def host_partition(
+    keys: np.ndarray, pays: np.ndarray, bits: int, first_bit: int = 0,
+    num_threads: int = 0, out: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Native OpenMP radix pre-partition into CSR layout. Returns
+    (keys', pays', counts, offsets), counts and offsets int64. `out`, two
+    int32 arrays of len(keys) that the caller owns (e.g. the `.numpy()`
+    views of pinned host tensors), receives keys' and pays' in place of new
+    arrays. Falls back to `utils.oracle.radix_partition` (which orders rows
+    by key within a partition; the native scatter keeps arrival order per
+    thread region)."""
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    pays = np.ascontiguousarray(pays, dtype=np.int32)
+    if keys.shape != pays.shape:
+        raise ValueError("keys and payloads must have equal lengths")
+    if out is None:
+        out = (np.empty_like(keys), np.empty_like(pays))
+    ok, op = out
+    for a in (ok, op):
+        if a.dtype != np.int32 or a.shape != keys.shape \
+                or not a.flags.c_contiguous:
+            raise ValueError(f"out arrays must be contiguous int32 of shape "
+                             f"{keys.shape}, got {a.dtype} {a.shape}")
+    parts = 1 << bits
+    lib = native_lib()
+    if lib is None:
+        from icde2019_gpu_join_tpu_torch.utils import oracle
+        k, p, counts, offsets = oracle.radix_partition(keys, pays, bits,
+                                                       first_bit)
+        np.copyto(ok, k)
+        np.copyto(op, p)
+        return ok, op, counts, offsets
+    counts = np.empty(parts, dtype=np.uint64)
+    offsets = np.empty(parts + 1, dtype=np.uint64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.tj_host_partition(
+        _i32p(keys), _i32p(pays), keys.shape[0], bits, first_bit,
+        num_threads, _i32p(ok), _i32p(op),
+        counts.ctypes.data_as(u64p), offsets.ctypes.data_as(u64p))
+    return ok, op, counts.astype(np.int64), offsets.astype(np.int64)
+
+
+def staging_copy(dst: np.ndarray, src: np.ndarray, num_threads: int = 0):
+    """Threaded streaming copy into a (pinned) staging buffer; `np.copyto`
+    when the sizes differ or the native library is missing."""
+    lib = native_lib()
+    if lib is not None and dst.nbytes == src.nbytes \
+            and dst.flags.c_contiguous and src.flags.c_contiguous:
+        lib.tj_staging_copy(dst.ctypes.data_as(ctypes.c_void_p),
+                            src.ctypes.data_as(ctypes.c_void_p),
+                            dst.nbytes, num_threads)
+    else:
+        np.copyto(dst, src)
+
+
+def knapsack_batches(gains: np.ndarray, capacity: int) -> np.ndarray:
+    """Group items into batches by repeated 0/1 knapsack on gains (weight
+    ceil(gain), at least 1, at most `capacity`). Returns the batch index of
+    each item, int32. Items of gain 0 are never chosen and each ends in a
+    batch of its own. The fallback is greedy first-fit decreasing."""
+    gains = np.ascontiguousarray(gains, dtype=np.float64)
+    n = gains.shape[0]
+    lib = native_lib()
+    if lib is not None:
+        out = np.empty(n, dtype=np.int32)
+        lib.tj_knapsack_batches(
+            gains.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n,
+            capacity, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+        return out
+    order = np.argsort(-gains)
+    batch_of = np.full(n, -1, dtype=np.int32)
+    rooms: list = []
+    weights = np.maximum(1, np.ceil(gains)).astype(np.int64)
+    for i in order:
+        for b, room in enumerate(rooms):
+            if room >= weights[i]:
+                rooms[b] -= weights[i]
+                batch_of[i] = b
+                break
+        else:
+            batch_of[i] = len(rooms)
+            rooms.append(capacity - min(weights[i], capacity))
+    return batch_of

@@ -20,11 +20,14 @@ from icde2019_gpu_join_tpu.utils import datasets as jdatasets
 from icde2019_gpu_join_tpu.utils import oracle
 from icde2019_gpu_join_tpu_torch import datagen as tdatagen
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, RadixConfig
-from icde2019_gpu_join_tpu_torch.models import ClusteredJoin
+from icde2019_gpu_join_tpu_torch.benchmarks import overlap_bench
+from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, clustered_probe_join
+from icde2019_gpu_join_tpu_torch.models import coprocess, streaming
 from icde2019_gpu_join_tpu_torch.ops import bits as tbits, probe as tprobe
 from icde2019_gpu_join_tpu_torch.relation import PartitionedRelation, Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets as tdatasets
 from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
+from icde2019_gpu_join_tpu_torch.utils import placement
 from tests.conftest import make_tables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,7 +91,12 @@ def test_unported_modes_raise():
 
 @pytest.mark.parametrize("entry", [
     ClusteredJoin.__init__, Relation.from_numpy, PartitionedRelation.from_numpy,
-    tprobe.ProbePlan.as_device, tbits.partition_boundaries],
+    tprobe.ProbePlan.as_device, tbits.partition_boundaries,
+    streaming.streaming_join_aggregate, coprocess.coprocess_join_aggregate,
+    coprocess.host_partition_pinned, clustered_probe_join, placement.place,
+    placement.place_relation, placement.placement_sharding,
+    placement.pinned_empty, placement.Uploader.__init__,
+    overlap_bench.streaming_leg, overlap_bench.coprocess_leg],
     ids=lambda f: f.__qualname__)
 def test_the_card_is_the_default_device(entry):
     """The port's entry points run on the card unless the caller asks for
@@ -258,6 +266,9 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch.ops.band_join\n"
         "import icde2019_gpu_join_tpu_torch.ops.filter\n"
         "import icde2019_gpu_join_tpu_torch.models.pipelines\n"
+        "import icde2019_gpu_join_tpu_torch.models.streaming\n"
+        "import icde2019_gpu_join_tpu_torch.models.coprocess\n"
+        "import icde2019_gpu_join_tpu_torch.utils.placement\n"
         "import icde2019_gpu_join_tpu_torch.ops.band_compare\n"
         "import icde2019_gpu_join_tpu_torch.ops.partition\n"
         "import icde2019_gpu_join_tpu_torch.ops.sort\n"
@@ -274,7 +285,7 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch.benchmarks as B, pkgutil, importlib\n"
         "names = [m.name for m in pkgutil.iter_modules(B.__path__)]\n"
         "assert sorted(names) == ['construct_probes', 'experimental_sort', "
-        "'merge_fix_validate', 'merge_sort_bench'], names\n"
+        "'merge_fix_validate', 'merge_sort_bench', 'overlap_bench'], names\n"
         "for name in names:\n"
         "    importlib.import_module(B.__name__ + '.' + name)\n"
         "import chip_smoke\n"
