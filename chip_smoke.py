@@ -117,10 +117,30 @@ run of all phases can pass. The phases:
              [100, 600): fused and streamed in 4 segments, equal to each
              other and to a direct-address numpy oracle, best of 3 and peak
              device memory; and the general numpy oracle at 2^20
-             duplicate-key R x 2^23 S.
-
-The headline, sorts, materialize, partitioned, streaming, coprocess, late and
-pipeline phases, and
+             duplicate-key R x 2^23 S;
+  distributed  the distributed layer (`parallel/`) in two worlds on the card,
+             its data and oracles all made before the first leg is timed.
+             A 1-rank NCCL world (`torch.distributed`, a `file://` store):
+             config 5's three legs through the process-group entry points at
+             2^24 x 2^24 with payloads 1, segmented in 4 segments and one-shot
+             against the checked-in oracle value, and Zipf z=1.05 at seed 777
+             (generated here, no cache) segmented against the C++ oracle.
+             Then an 8-rank thread world on the card at 2^22 x 2^22 global
+             with full-range payloads: segmented in 4 segments; segmented
+             with 30% of S on one key, where the heavy split must run (its
+             executed per-rank loads and their spread printed, within 2x of
+             the uniform share); the 2-level exchange on a 2 x 4 mesh; the
+             materializing join as a multiset against the numpy oracle; and
+             the port's `dryrun_multichip(8)`. Every leg overflow 0 and equal
+             to its oracle, best of 3 after a warm-up, kernel 1 launched on
+             every aggregate leg and kernels 3, 4 and 2 on the materialize
+             leg. The warm-up calls record the (CH, W) each banded kernel
+             gets; each of kernels 1-4 is then held against its plain version
+             at the largest CH of each width W, with both times there.
+             (Where the time of these legs goes: the port's
+             `benchmarks/dist_bench.py`.)
+The headline, sorts, materialize, partitioned, streaming, coprocess, late,
+pipeline and distributed phases, and
 the four phases of the sort tools, each zero the kernels' launch counts just
 before they drive their path, read them just after, and fail if a kernel of
 the path did not launch. Then one JSON
@@ -134,7 +154,13 @@ that computes the tile sort on distinct keys (`torch.sort` along dim 1 +
 gather); no single call computes any of the other functions, so it is null
 there; the whole merge sort has `torch.sort` + gather beside it in the kernel
 merge phase. Kernel 1's entry also carries its launches in the streamed
-and the co-processed call (`launches_streaming`, `launches_coprocess`).
+and the co-processed call (`launches_streaming`, `launches_coprocess`);
+kernels 1-4 carry their launches on each leg of the distributed phase
+(`launches_distributed`), and each of kernels 1-4 its error and times at
+the largest chunk of each width the distributed legs gave it
+(`at_distributed`). The probe ladder's entry carries, beside its bound, the
+floor its launches set (`bound_launches_ms`): 13 x the device time of one
+empty launch (CUDA events around 100 of them back to back).
 Kernel 7's entry also carries its plan kernel's time
 (`plan_ms`, beside the torch planner's wall time) and launches
 (`plan_launches`) and window 4096 at both levels; kernel 5's its time and bound at config 2's plan. The probe ladder is one entry: its launches are the probe
@@ -144,15 +170,19 @@ printed; that includes a machine without CUDA.
 """
 
 import concurrent.futures
+import contextlib
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from icde2019_gpu_join_tpu_torch import datagen
 from icde2019_gpu_join_tpu_torch.benchmarks import (construct_probes,
@@ -168,6 +198,10 @@ from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
                                              merge, perfect_hash, probe_ranges)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
+from icde2019_gpu_join_tpu_torch.parallel import dist_join, dryrun
+from icde2019_gpu_join_tpu_torch.parallel import plan as xplan
+from icde2019_gpu_join_tpu_torch.parallel.mesh import (group_mesh, make_mesh,
+                                                       make_mesh_2d)
 from icde2019_gpu_join_tpu_torch.relation import Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets, oracle, placement
 
@@ -247,6 +281,17 @@ CARD = {}                   # "int_ops_per_s", "line", set by phase_report
 # S of the streamed leg: this many copies of the headline's S (copy c has
 # payload c + 1)
 STREAM_COPIES = 4
+# the distributed phase: config 5's 1-rank legs (benchmarks/run_configs.py:
+# 256-307) at 2^DIST_SCALE a side, its Zipf leg at its own seed; the thread
+# world's DIST_RANKS ranks at 2^DIST_THREAD_SCALE global rows a side, the
+# heavy leg with DIST_HOT of S on one key
+DIST_SCALE = 24
+DIST_ZIPF_SEED = 777
+DIST_RANKS = 8
+DIST_THREAD_SCALE = 22
+DIST_HOT = 0.3
+# the empty launches timed back to back for the probe ladder's bound
+EMPTY_LAUNCHES = 100
 
 
 def _oracle_value(scale: int, skew: float) -> int:
@@ -472,36 +517,49 @@ def phase_build():
           f"host {t_host:.2f}s ({_build.HOST_LIB}), in parallel")
 
 
+def _hold(name: str, shapes, gen) -> int:
+    """Kernel `name` against its plain version at each (CH, W) of `shapes`,
+    on fresh inputs; raises on a difference, else returns 0 (the max abs
+    err)."""
+    wrapper, plain, make = KERNELS[name]
+    for ch, w in shapes:
+        args = make(gen, ch, w * band_compare.LANES)
+        err = _max_err(wrapper(*args), plain(*args))
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"{name}: kernel != plain at CH={ch} W={w}"
+                                 f" (max abs err {err})")
+    return 0
+
+
+def _time_at(name: str, ch: int, w: int, gen) -> dict:
+    """Kernel `name`'s and its plain version's time at (CH, W), and its
+    bound there."""
+    wrapper, plain, make = KERNELS[name]
+    args = make(gen, ch, w * band_compare.LANES)
+    ms = _time_ms(lambda: wrapper(*args), 20)
+    plain_ms = _time_ms(lambda: plain(*args), 3)
+    out = wrapper(*args)
+    return {"ms": ms, "plain_ms": plain_ms, **_bound(
+        _nbytes(*args, *(out if isinstance(out, tuple) else (out,))),
+        ch * band_compare.LANES * w * band_compare.LANES * KERNEL_OPS[name])}
+
+
 def phase_kernel() -> dict:
     """Per kernel: max |kernel - plain| over every shape, and both times at
     its first main-path shape."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     stats = {}
-    for name, (wrapper, plain, make) in KERNELS.items():
+    for name in KERNELS:
         main = _main_shapes()[name]
-        err = 0
-        for ch, w in SMALL_SHAPES + main:
-            args = make(gen, ch, w * band_compare.LANES)
-            err = max(err, _max_err(wrapper(*args), plain(*args)))
-            torch.cuda.synchronize()
-            if err:
-                raise AssertionError(f"{name}: kernel != plain at CH={ch} W={w}"
-                                     f" (max abs err {err})")
-        ch, w = main[0]
-        args = make(gen, ch, w * band_compare.LANES)
-        ms = _time_ms(lambda: wrapper(*args), 20)
-        plain_ms = _time_ms(lambda: plain(*args), 3)
-        out = wrapper(*args)
-        bound = _bound(
-            _nbytes(*args, *(out if isinstance(out, tuple) else (out,))),
-            ch * band_compare.LANES * w * band_compare.LANES * KERNEL_OPS[name])
-        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **bound}
+        err = _hold(name, SMALL_SHAPES + main, gen)
+        stats[name] = {"max_abs_err": err, **_time_at(name, *main[0], gen)}
+        st = stats[name]
         print(f"[kernel] {name}: equal to plain at (CH, W) in "
-              f"{SMALL_SHAPES + main}; at {main[0]}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-              f"by {bound['bound_by']}")
+              f"{SMALL_SHAPES + main}; at {main[0]}: kernel {st['ms']:.4f} ms, "
+              f"plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
+              f"by {st['bound_by']}")
     # the interval select at widths that are no multiple of its staging tile
     # nor even, on the engine's kind of intervals and on the edge cases
     hits = 0
@@ -1053,10 +1111,21 @@ def phase_probes() -> tuple:
     # what of a probe's time is its launch: an empty kernel through the same
     # launcher, timed as a probe is
     floor_ms = cp.launch_floor_ms(DEVICE)
+    # the device time of one empty launch: CUDA events around
+    # EMPTY_LAUNCHES of them back to back. The ladder launches one kernel a
+    # probe, so it cannot take less than that many of these.
+    block = torch.zeros((cp.BLOCK_ROWS, cp.LANES), dtype=torch.int32,
+                        device=DEVICE)
+    empty_ms = _time_ms(lambda: cp.empty_launch(block), EMPTY_LAUNCHES)
+    # `bound_ms` stays the bytes' or the operations' time, as for every
+    # kernel; the floor the launches set is `bound_launches_ms` beside it
+    bound = _bound(4 * sum(PROBE_ELEMENTS.values()), ops)
+    launches_ms = len(mine) * empty_ms
     stats = {"max_abs_err": 0,
              "ms": sum(line["ms"] for line in mine.values()),
              "plain_ms": sum(line["plain_ms"] for line in mine.values()),
-             **_bound(4 * sum(PROBE_ELEMENTS.values()), ops),
+             **bound, "bound_launches_ms": launches_ms,
+             "empty_launch_device_ms": empty_ms,
              "probes": len(mine), "launch_floor_ms": floor_ms,
              "probe_ms": {name: line["ms"] for name, line in by_name.items()},
              "probe_plain_ms": {name: line["plain_ms"]
@@ -1065,7 +1134,12 @@ def phase_probes() -> tuple:
           f"ms, kernel / plain: " + ", ".join(
               f"{n} {l['ms']:.4f} / {l['plain_ms']:.3f}" for n, l in by_name.items())
           + f"; the {len(mine)} probe kernels together {stats['ms']:.4f} ms, "
-          f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']}; an empty "
+          f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']} ("
+          f"{4 * sum(PROBE_ELEMENTS.values())} bytes, {ops} operations); "
+          f"the floor of its launches {launches_ms:.4f} ms ({len(mine)} x the "
+          f"device time of an empty launch, {empty_ms:.4f} ms by CUDA events "
+          f"around {EMPTY_LAUNCHES} back to back), "
+          f"{launches_ms / stats['ms']:.0%} of the ladder's time; an empty "
           f"kernel through the same launcher, by the same clock (best of 25): "
           f"{floor_ms:.4f} ms a launch, {len(mine) * floor_ms:.4f} ms for "
           f"{len(mine)} ({len(mine) * floor_ms / stats['ms']:.0%} of the "
@@ -1760,6 +1834,246 @@ def phase_pipeline():
     return launches
 
 
+# ---- the distributed layer ---------------------------------------------------
+
+def _expect_agg(what: str, want: int):
+    """A check of an (aggregate, overflow, ...) result."""
+    def check(out):
+        agg, ov = int(out[0]), int(out[1])
+        if ov != 0 or agg != want:
+            raise AssertionError(f"{what}: aggregate {agg}, overflow {ov}; "
+                                 f"oracle {want}, overflow 0")
+    return check
+
+
+# the wrappers band_join calls, and which of each one's arguments holds its
+# windows ([CH, W*128])
+WINDOW_ARG = {"banded_compare_sum": 2, "banded_compare_per_s": 1,
+              "banded_compare_first": 1, "banded_interval_select": 1}
+
+
+@contextlib.contextmanager
+def _shapes_seen(seen: dict):
+    """While the block runs, add to seen[name] the (CH, W) that each banded
+    kernel's wrapper gets from band_join: its names there are swapped for
+    recorders that call the wrapper."""
+    real = {name: getattr(band_join, name) for name in WINDOW_ARG}
+
+    def recorder(name):
+        def call(*args):
+            ch, width = args[WINDOW_ARG[name]].shape
+            seen.setdefault(name, set()).add((ch, width // band_compare.LANES))
+            return real[name](*args)
+        return call
+
+    for name in WINDOW_ARG:
+        setattr(band_join, name, recorder(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(band_join, name, fn)
+
+
+def _dist_leg(what: str, fn, check, kernels, report: list, counts: dict,
+              seen: dict):
+    """A warm-up call with its launches counted and checked and the kernels'
+    shapes recorded, then the best of REPS, checked again. Records the
+    launches of `kernels`."""
+    with _shapes_seen(seen):
+        out, launches = _launched(fn)
+    check(out)
+    _require(launches, what, *kernels)
+    best, out = _best_s(fn)
+    check(out)
+    counts[what] = {k: launches[k] for k in kernels}
+    report.append(f"{what} {best * 1e3:.3f} ms (launches "
+                  f"{', '.join(f'{k} {launches[k]}' for k in kernels)})")
+    return out
+
+
+def _zipf_inputs():
+    """Config 5's Zipf leg at its own seed, with its C++ oracle: made here
+    and not through `datasets`, whose .bin cache is named by size alone and
+    holds seed 12345's keys."""
+    n = 1 << DIST_SCALE
+    rk = datagen.random_unique_gen(n, n, seed=DIST_ZIPF_SEED)
+    sk = datagen.gen_zipf(n, n, 1.05, seed=DIST_ZIPF_SEED)
+    ones = np.ones(n, np.int32)
+    return rk, sk, datagen.oracle_join_aggregate(rk, ones, sk, ones)
+
+
+def _nccl_legs(report: list, counts: dict, seen: dict, zipf):
+    """Config 5's legs in a 1-rank NCCL world, through the process-group
+    entry points; `zipf` is `_zipf_inputs()`. NCCL's init failing fails the
+    phase."""
+    n = 1 << DIST_SCALE
+    rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
+    rkz, skz, want_z = zipf
+    want = _oracle_value(DIST_SCALE, 0.0)
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        comm = group_mesh().comm("x")
+        one = torch.ones(n, dtype=torch.int32, device=DEVICE)
+        r, s, rz, sz = (torch.from_numpy(a).to(DEVICE)
+                        for a in (rk, sk, rkz, skz))
+        k1 = ("banded_compare_sum",)
+        _dist_leg("nccl 1 rank segmented", lambda: (
+            dist_join.distributed_join_segmented_local(
+                r, one, s, one, comm, num_segments=4)),
+            _expect_agg("segmented", want), k1, report, counts, seen)
+        _dist_leg("nccl 1 rank one-shot", lambda: (
+            dist_join.distributed_join_aggregate_local(r, one, s, one, comm)),
+            _expect_agg("one-shot", want), k1, report, counts, seen)
+        _dist_leg("nccl 1 rank zipf1.05 seed 777 segmented", lambda: (
+            dist_join.distributed_join_segmented_local(
+                rz, one, sz, one, comm, num_segments=4)),
+            _expect_agg("zipf segmented", want_z), k1, report, counts, seen)
+        report.append(f"2^{DIST_SCALE} x 2^{DIST_SCALE}, payloads 1, oracles "
+                      f"{want} (checked in) and {want_z} (C++)")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _thread_inputs():
+    """The thread world's relations: 2^DIST_THREAD_SCALE a side, full-range
+    payloads, and S with DIST_HOT of its rows on one key (numpy)."""
+    n = 1 << DIST_THREAD_SCALE
+    rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
+    rng = np.random.RandomState(SEED + 9)
+    rp = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    sp = rng.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    hot = np.where(rng.rand(n) < DIST_HOT, rk[0], sk).astype(np.int32)
+    return rk, rp, sk, sp, hot
+
+
+def _thread_legs(report: list, counts: dict, seen: dict, inputs, wants,
+                 pairs):
+    """The 8-rank thread world on the card; `wants` are the C++ oracle's
+    aggregates of the uniform and the hot relations, `pairs` the numpy
+    materialize oracle's (Pr, Ps) rows, sorted."""
+    rk, rp, sk, sp, hot = inputs
+    want, want_hot = wants
+    n = rk.size
+    r, p_r, s, p_s, s_hot = (torch.from_numpy(a).to(DEVICE)
+                             for a in (rk, rp, sk, sp, hot))
+    mesh = make_mesh(DIST_RANKS, device=DEVICE)
+    mesh2 = make_mesh_2d(2, DIST_RANKS // 2, device=DEVICE)
+    k1 = ("banded_compare_sum",)
+    tag = f"{DIST_RANKS} threads"
+
+    _dist_leg(f"{tag} segmented", lambda: (
+        dist_join.distributed_join_segmented(
+            r, p_r, s, p_s, mesh, num_segments=4)),
+        _expect_agg("segmented", want), k1, report, counts, seen)
+
+    planned = mesh.run(lambda c, a, b: xplan.plan_heavy_split(
+        a, b, c["x"], DIST_RANKS, segments=4).heavy_ids, r, s_hot)
+    if not planned[0] or any(h != planned[0] for h in planned):
+        raise AssertionError(f"heavy split not planned alike: {planned}")
+    check_hot = _expect_agg("heavy split", want_hot)
+
+    def check_loads(out):
+        check_hot(out)
+        loads = out[2]
+        if loads.sum() != n or loads.max() > 2.0 * loads.mean():
+            raise AssertionError(f"heavy split: executed loads {loads.tolist()}"
+                                 f" (sum {loads.sum()}, {n} probe rows)")
+
+    _, _, loads = _dist_leg(
+        f"{tag} segmented heavy split", lambda: (
+            dist_join.distributed_join_segmented(
+                r, p_r, s_hot, p_s, mesh, num_segments=4, return_loads=True)),
+        check_loads, k1, report, counts, seen)
+    report.append(f"{DIST_HOT:.0%} of S on one key: {len(planned[0])} heavy "
+                  f"fine buckets; executed per-rank loads {loads.tolist()}, "
+                  f"spread max/mean {loads.max() / loads.mean():.4f}")
+
+    _dist_leg(f"{tag} 2-level {mesh2.shape}", lambda: (
+        dist_join.distributed_join_aggregate_2level(r, p_r, s, p_s, mesh2)),
+        _expect_agg("2-level", want), k1, report, counts, seen)
+
+    # as dryrun_multichip sizes it
+    cap = max(128, -(-2 * max(pairs.shape[0], 1) // 128) * 128)
+
+    def check_pairs(out):
+        out_r, out_s, totals, ov = out
+        totals = totals.cpu().numpy()
+        if int(ov) != 0 or totals.sum() != pairs.shape[0] or totals.max() > cap:
+            raise AssertionError(f"materialize: totals {totals.tolist()}, "
+                                 f"overflow {int(ov)}; {pairs.shape[0]} pairs")
+        out_r, out_s = out_r.cpu().numpy(), out_s.cpu().numpy()
+        got = np.concatenate([np.stack([out_r[d * cap:d * cap + t],
+                                        out_s[d * cap:d * cap + t]], axis=1)
+                              for d, t in enumerate(totals)])
+        if not np.array_equal(got[np.lexsort((got[:, 1], got[:, 0]))], pairs):
+            raise AssertionError("materialize: not the oracle's multiset")
+
+    _dist_leg(f"{tag} materialize", lambda: (
+        dist_join.distributed_join_materialize(r, p_r, s, p_s, mesh,
+                                               capacity_per_chip=cap)),
+        check_pairs, ("banded_compare_first", "banded_interval_select",
+                      "banded_compare_per_s"), report, counts, seen)
+    report.append(f"2^{DIST_THREAD_SCALE} x 2^{DIST_THREAD_SCALE} global, "
+                  f"full-range payloads, C++ oracles {want} and {want_hot}, "
+                  f"{pairs.shape[0]} pairs into {cap} a rank")
+
+    line, launches = _launched(lambda: dryrun.dryrun_multichip(DIST_RANKS,
+                                                               DEVICE))
+    _require(launches, "dryrun_multichip", *k1)
+    report.append(line)
+
+
+def _hold_seen(seen: dict, report: list) -> dict:
+    """Each banded kernel against its plain version at the largest CH of
+    each width W that the distributed legs gave it, with both times there."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    held = {}
+    for name in KERNELS:
+        widest = {}
+        for ch, w in seen.get(name, ()):
+            widest[w] = max(widest.get(w, 0), ch)
+        held[name] = []
+        for w, ch in sorted(widest.items()):
+            st = {"shape": [ch, w], "max_abs_err": _hold(name, [(ch, w)], gen),
+                  **_time_at(name, ch, w, gen)}
+            held[name].append(st)
+            report.append(f"{name} at ({ch}, {w}): equal to plain, kernel "
+                          f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+                          f"bound {st['bound_ms']:.4f} ms by {st['bound_by']}")
+    return held
+
+
+def phase_distributed() -> tuple:
+    """Returns, for each of kernels 1-4, its launches on each leg, and its
+    error and times at the legs' largest chunks. The data and the oracles
+    are all made before the first leg, so no leg is timed beside host work
+    of the script's own."""
+    report, counts, seen = [], {}, {}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        zipf = pool.submit(_zipf_inputs)
+        inputs = _thread_inputs()
+        pairs = pool.submit(oracle.join_materialize, *inputs[:4])
+        rk, rp, sk, sp, hot = inputs
+        wants = (datagen.oracle_join_aggregate(rk, rp, sk, sp),
+                 datagen.oracle_join_aggregate(rk, rp, hot, sp))
+        zipf, pairs = zipf.result(), pairs.result()
+    report.append(f"data and oracles {time.perf_counter() - t0:.1f}s, before "
+                  f"the legs")
+    _nccl_legs(report, counts, seen, zipf)
+    _thread_legs(report, counts, seen, inputs, wants, pairs)
+    held = _hold_seen(seen, report)
+    print("[distributed] " + "; ".join(report))
+    return ({name: {leg: c[name] for leg, c in counts.items() if name in c}
+             for name in KERNELS}, held)
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1770,7 +2084,7 @@ def _timed(name, fn, *args):
 PHASES = ("kernel", "kernel ranges", "kernel merge", "kernel sort tiles",
           "kernel stage", "probes", "sort tools", "mid", "headline", "sorts",
           "materialize", "partitioned", "streaming", "coprocess", "late",
-          "pipeline")
+          "pipeline", "distributed")
 # phases that join the headline's 2^27 relations, which `headline` makes
 NEED_HEADLINE = ("sorts", "materialize", "partitioned", "streaming",
                  "coprocess")
@@ -1791,7 +2105,8 @@ def _partial(names) -> int:
              "kernel sort tiles": phase_kernel_sort_tiles,
              "kernel stage": phase_kernel_stage, "probes": phase_probes,
              "sort tools": phase_sort_tools, "mid": phase_mid,
-             "late": phase_late, "pipeline": phase_pipeline}
+             "late": phase_late, "pipeline": phase_pipeline,
+             "distributed": phase_distributed}
     with_big = {"sorts": phase_sorts, "materialize": phase_materialize,
                 "partitioned": phase_partitioned,
                 "streaming": phase_streaming, "coprocess": phase_coprocess}
@@ -1848,6 +2163,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     _timed("late", phase_late)
     pipe = _timed("pipeline", phase_pipeline)
+    torch.cuda.empty_cache()
+    legs, held = _timed("distributed", phase_distributed)
+    for name in KERNELS:
+        kstats[name]["launches_distributed"] = legs[name]
+        kstats[name]["at_distributed"] = held[name]
+        kstats[name]["max_abs_err"] = max(
+            [kstats[name]["max_abs_err"]] + [h["max_abs_err"] for h in held[name]])
     # each kernel's launches on its path: the aggregate, the config-3
     # pipeline, the config-2 ring, the 2^24 fast-path materialize, the
     # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"; the tile

@@ -70,7 +70,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, merge
+from icde2019_gpu_join_tpu_torch.ops import _build, _launches, merge
 from icde2019_gpu_join_tpu_torch.utils.timing import best_ms
 
 LANES = 128
@@ -89,7 +89,7 @@ LAUNCHES: Dict[str, int] = {"construct_probes": 0}
 
 
 def reset_launches():
-    LAUNCHES["construct_probes"] = 0
+    _launches.reset(LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +228,7 @@ def _launch(entry: str, o: torch.Tensor, meta=None, a=None, b=None,
                              stream)
     if err != 0:
         raise RuntimeError(f"tj_probe_{entry} launch failed: CUDA error {err}")
-    LAUNCHES["construct_probes"] += counted
+    _launches.count(LAUNCHES, "construct_probes", counted)
     return o
 
 

@@ -46,7 +46,7 @@ import numpy as np
 
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build
+from icde2019_gpu_join_tpu_torch.ops import _build, _launches
 from icde2019_gpu_join_tpu_torch.ops.merge import (_check_aligned,
                                                    _check_pairs, _is_pow2)
 
@@ -62,7 +62,7 @@ LAUNCHES: Dict[str, int] = {"sort_tiles": 0}
 
 
 def reset_launches():
-    LAUNCHES["sort_tiles"] = 0
+    _launches.reset(LAUNCHES)
 
 
 def _check(sv: torch.Tensor, pay: torch.Tensor, tile_elems: int):
@@ -215,5 +215,5 @@ def sort_tiles(sv: torch.Tensor, pay: torch.Tensor,
                 raise RuntimeError(f"tj_sort_{launch.kind} launch failed at "
                                    f"{launch}: CUDA error {err}")
             src = out
-    LAUNCHES["sort_tiles"] += 1
+    _launches.count(LAUNCHES, "sort_tiles")
     return osv, opay

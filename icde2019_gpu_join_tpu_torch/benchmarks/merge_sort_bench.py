@@ -53,7 +53,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, merge
+from icde2019_gpu_join_tpu_torch.ops import _build, _launches, merge
 from icde2019_gpu_join_tpu_torch.utils.timing import best_ms
 
 REPS = 24
@@ -65,7 +65,7 @@ LAUNCHES: Dict[str, int] = {"stage_reps": 0}
 
 
 def reset_launches():
-    LAUNCHES["stage_reps"] = 0
+    _launches.reset(LAUNCHES)
 
 
 def _check(sv, pv, d: int, reps: int, tile: int):
@@ -118,7 +118,7 @@ def stage_reps(sv: torch.Tensor, pv: torch.Tensor, d: int, reps: int,
                         opv.data_ptr(), sv.shape[0], d, reps, tile, stream)
     if err != 0:
         raise RuntimeError(f"tj_stage_reps launch failed: CUDA error {err}")
-    LAUNCHES["stage_reps"] += 1
+    _launches.count(LAUNCHES, "stage_reps")
     return osv.view(-1, LANES), opv.view(-1, LANES)
 
 

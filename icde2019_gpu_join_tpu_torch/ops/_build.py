@@ -21,6 +21,7 @@ import os
 import platform
 import shutil
 import subprocess
+import threading
 import time
 from typing import List, Optional
 
@@ -33,6 +34,7 @@ KERNEL_LIB = os.path.join(BUILD_DIR, "libtpujoin_torch_kernels.so")
 HOST_LIB = os.path.join(BUILD_DIR, "libtpujoin_host.so")
 
 _loaded = {}
+_load_lock = threading.Lock()   # one build at a time, whatever the thread
 
 
 def _is_stale(out: str, sources: List[str]) -> bool:
@@ -123,10 +125,11 @@ def build_host() -> float:
 
 
 def _load(path: str, build) -> ctypes.CDLL:
-    lib: Optional[ctypes.CDLL] = _loaded.get(path)
-    if lib is None:
-        build()
-        lib = _loaded[path] = ctypes.CDLL(path)
+    with _load_lock:
+        lib: Optional[ctypes.CDLL] = _loaded.get(path)
+        if lib is None:
+            build()
+            lib = _loaded[path] = ctypes.CDLL(path)
     return lib
 
 

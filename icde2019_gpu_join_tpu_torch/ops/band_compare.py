@@ -32,7 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build
+from icde2019_gpu_join_tpu_torch.ops import _build, _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 
 LANES = 128
@@ -60,8 +60,7 @@ _REF_ELEMS = 1 << 26
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _launches.reset(LAUNCHES)
 
 
 def _row_steps(ch: int, wb: int):
@@ -155,7 +154,7 @@ def _launch(name: str, tensors, wb: int):
         err = _kernel(name)(*(x.data_ptr() for x in tensors), ch, wb, stream)
     if err != 0:
         raise RuntimeError(f"tj_{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    _launches.count(LAUNCHES, name)
 
 
 def banded_compare_sum(sk: torch.Tensor, sp: torch.Tensor,

@@ -296,9 +296,12 @@ def _extract_blocked(h, fm, off, s_p, r_p, capacity: int, total: int, s_blk,
     block of its window (in range), and the caller has verified both window
     span conditions (see banded_materialize); otherwise results are wrong.
     Returns (out_r, out_s), 0 outside live slots. Each slot's result does
-    not depend on the others, so the kernels run once over all slot blocks
-    (the TPU path mapped over 512-row chunks for VMEM and compile time)."""
-    cb = capacity // _BLK
+    not depend on the others, so the kernels run once over the live slot
+    blocks, those below `total` (the TPU path mapped over 512-row chunks of
+    every block for VMEM and compile time); the dead ones stay 0."""
+    cap_blocks = capacity // _BLK
+    cb = min(cap_blocks, -(-total // _BLK))
+    s_blk, rb0 = s_blk[:cb], rb0[:cb]
     dev = h.device
     nb_s = h.shape[0] // _BLK
     nb_r = r_p.shape[0] // _BLK
@@ -331,8 +334,10 @@ def _extract_blocked(h, fm, off, s_p, r_p, capacity: int, total: int, s_blk,
 
     live = (valid > 0) & (pos < total)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return (torch.where(live, r_sel, zero).view(-1),
-            torch.where(live, sp_sel, zero).view(-1))
+    dead = (cap_blocks - cb) * _BLK
+    return tuple(torch.nn.functional.pad(torch.where(live, x, zero).view(-1),
+                                         (0, dead))
+                 for x in (r_sel, sp_sel))
 
 
 def _materialize_slot_path(h, fm, off, s_p, r_p, capacity: int, total: int,
@@ -381,13 +386,19 @@ def _fast_path_plan(h, fm, off, s_p, r_p, capacity: int, total: int):
     # Owner anchor at S-block granularity: rank the slot-block starts among
     # the 128-coarse match-offset table. The true owner row lies within 127
     # rows after the anchor; the S window and the span checks absorb that.
+    # Starts at/after `total`, and the end of the last slot block, are
+    # anchored at the last match, so the last live block's span ends at its
+    # last owner and not past unmatched S rows at the end (an exchange's
+    # received pads, S keys above R's); the JAX engine anchors them at the
+    # last S block and takes the slot path there.
     h2d = h_p.view(-1, _BLK)
     hb = h2d.sum(1)
     coarse_off = wrap_i32(torch.cumsum(hb, 0) - hb)
-    s_blk = torch.clamp(
-        _ranks_of_sorted_probes(coarse_off, block_starts,
+    ends = torch.cat([block_starts, block_starts.new_full((1,), c128)])
+    anchors = torch.clamp(
+        _ranks_of_sorted_probes(coarse_off, torch.clamp(ends, max=total - 1),
                                 a_first_on_ties=True) - 1, 0, nb_s - 1)
-    s_nxt_blk = torch.cat([s_blk[1:], s_blk.new_full((1,), nb_s - 1)])
+    s_blk, s_nxt_blk = anchors[:-1], anchors[1:]
     # slot blocks at/after `total` are dead (all-zero output): their
     # "owners" are trailing h = 0 rows with fm = MAX
     livep = block_starts < total

@@ -59,7 +59,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build
+from icde2019_gpu_join_tpu_torch.ops import _build, _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 
 INT_MIN = -0x80000000
@@ -94,9 +94,7 @@ _REF_ELEMS = 1 << 24
 
 def reset_launches():
     """Zero the launch counts and the route counts."""
-    for counts in (LAUNCHES, ROUTES):
-        for name in counts:
-            counts[name] = 0
+    _launches.reset(LAUNCHES, ROUTES)
 
 
 def _is_pow2(x: int) -> bool:
@@ -230,7 +228,7 @@ def _launch(name: str, counter: str, tensors, *sizes: int):
         err = _kernel(name)(*(x.data_ptr() for x in tensors), *sizes, stream)
     if err != 0:
         raise RuntimeError(f"tj_{name} launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
+    _launches.count(LAUNCHES, counter)
 
 
 def merge_levels_vmem(sv: torch.Tensor, pv: torch.Tensor, run_len: int,
@@ -588,7 +586,7 @@ def merge_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
     if (n < 2 * BASE_RUN or not _is_pow2(n)
             or (n > CASCADE_MAX_N and sv.is_cuda)
             or bool(((sv == INT_MIN) | (sv == INT_MAX)).any())):
-        ROUTES["fallback"] += 1
+        _launches.count(ROUTES, "fallback")
         return torch_sort_pairs(sv, pv)
-    ROUTES["cascade"] += 1
+    _launches.count(ROUTES, "cascade")
     return _merge_sort_cascade(sv, pv)

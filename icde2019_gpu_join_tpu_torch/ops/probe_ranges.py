@@ -30,7 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build
+from icde2019_gpu_join_tpu_torch.ops import _build, _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 
 # Kernel launches since the last reset; only the CUDA path adds.
@@ -42,8 +42,7 @@ _REF_ELEMS = 1 << 26
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    _launches.reset(LAUNCHES)
 
 
 def plan_ranges(offsets_r: np.ndarray, offsets_s: np.ndarray, n_r: int,
@@ -191,5 +190,5 @@ def probe_aggregate_ranges(r_keys: torch.Tensor, r_pay: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"tj_probe_aggregate_ranges launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["probe_aggregate_ranges"] += 1
+    _launches.count(LAUNCHES, "probe_aggregate_ranges")
     return out[0]

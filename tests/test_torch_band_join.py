@@ -262,6 +262,9 @@ def _mat_case(kind, seed=4):
     elif kind == "sparse":   # ~1/50 of S matches: owner spans blow up
         rk = rng.permutation(100).astype(np.int32)
         sk = rng.randint(0, 5000, 6000).astype(np.int32)
+    elif kind == "spread":   # ~1/50 of S matches, spread over S's order
+        rk = rng.permutation(5000)[:100].astype(np.int32)
+        sk = rng.randint(0, 5000, 6000).astype(np.int32)
     else:                    # heavy duplicates on both sides
         rk = rng.randint(0, 30, 2000).astype(np.int32)
         sk = rng.randint(0, 30, 1000).astype(np.int32)
@@ -290,10 +293,16 @@ def test_materialize_matches_jax_and_oracle(kind, force):
     np.testing.assert_array_equal(got, _oracle_multiset(rk, rp, sk, sp, cap))
 
 
-@pytest.mark.parametrize("kind,fast", [("dense", True), ("sparse", False)])
+@pytest.mark.parametrize("kind,fast", [("dense", True), ("sparse", True),
+                                       ("spread", False)])
 def test_materialize_routes_like_jax(kind, fast, monkeypatch):
-    """The fast path engages on matched-dense inputs; sparse ones fall back
-    to the slot path."""
+    """The fast path engages on matched-dense inputs; matches spread thin
+    over S fall back to the slot path. A deliberate divergence from the JAX
+    engine: "sparse" has all its matches at the front of the sorted S and
+    unmatched rows after them. JAX anchors the slot blocks past the last
+    match at the last S block, so its span check fails and it takes the slot
+    path; the port anchors them at the last match and takes the fast path.
+    Both give the oracle's multiset (test_materialize_matches_jax_and_oracle)."""
     calls = []
     real = T._extract_blocked
     monkeypatch.setattr(T, "_extract_blocked",
@@ -302,6 +311,53 @@ def test_materialize_routes_like_jax(kind, fast, monkeypatch):
     T.banded_materialize(*map(torch.from_numpy, (rk, rp, sk, sp)),
                          capacity=oracle.join_count(rk, sk) + 200)
     assert bool(calls) == fast
+
+
+def test_materialize_unmatched_tail_takes_the_fast_path(monkeypatch):
+    """Matches dense at the front of the sorted S, unmatched rows after them
+    (S keys above R's, an exchange's received pads): the last live slot
+    block is anchored at the last match, so the span check passes and the
+    block-windowed path runs (the JAX engine takes the slot path here), with
+    the same multiset."""
+    calls = []
+    real = T._extract_blocked
+    monkeypatch.setattr(T, "_extract_blocked",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    rng = np.random.RandomState(5)
+    rk = rng.permutation(3000).astype(np.int32)
+    sk = np.concatenate([rng.randint(0, 3000, 4000),
+                         rng.randint(10**6, 2 * 10**6, 1500)]).astype(np.int32)
+    rp = rng.randint(1, 1000, rk.size).astype(np.int32)
+    sp = rng.randint(1, 1000, sk.size).astype(np.int32)
+    cap = 4000 + 700
+    t_r, t_s, total = T.banded_materialize(
+        *map(torch.from_numpy, (rk, rp, sk, sp)), capacity=cap)
+    j_r, j_s, _ = J.banded_materialize(*map(jnp.asarray, (rk, rp, sk, sp)),
+                                       capacity=cap)
+    assert calls and int(total) == 4000
+    np.testing.assert_array_equal(_multiset(t_r, t_s), _multiset(j_r, j_s))
+    np.testing.assert_array_equal(_multiset(t_r, t_s),
+                                  _oracle_multiset(rk, rp, sk, sp, cap))
+
+
+@pytest.mark.parametrize("force", [None, "fast"])
+def test_materialize_fast_path_leaves_dead_slot_blocks_zero(force):
+    """A buffer 4x the match total (as the distributed materializer sizes
+    it): the fast path selects over the live slot blocks only and the dead
+    ones come out 0; the multiset is JAX's and the oracle's."""
+    rk, rp, sk, sp = _mat_case("dense")
+    total = oracle.join_count(rk, sk)
+    cap = 4 * total + 64
+    t_r, t_s, t_tot = T.banded_materialize(
+        *map(torch.from_numpy, (rk, rp, sk, sp)), capacity=cap,
+        debug_force=force)
+    j_r, j_s, _ = J.banded_materialize(*map(jnp.asarray, (rk, rp, sk, sp)),
+                                       capacity=cap, debug_force=force)
+    assert int(t_tot) == total and t_r.shape == t_s.shape == (cap,)
+    assert not t_r[total:].any() and not t_s[total:].any()
+    np.testing.assert_array_equal(_multiset(t_r, t_s), _multiset(j_r, j_s))
+    np.testing.assert_array_equal(_multiset(t_r, t_s),
+                                  _oracle_multiset(rk, rp, sk, sp, cap))
 
 
 def test_materialize_sparse_wide_fm_guard():

@@ -24,6 +24,7 @@ from icde2019_gpu_join_tpu_torch.benchmarks import overlap_bench
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, clustered_probe_join
 from icde2019_gpu_join_tpu_torch.models import coprocess, streaming
 from icde2019_gpu_join_tpu_torch.ops import bits as tbits, probe as tprobe
+from icde2019_gpu_join_tpu_torch.parallel import dryrun, mesh as tmesh
 from icde2019_gpu_join_tpu_torch.relation import PartitionedRelation, Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets as tdatasets
 from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
@@ -96,7 +97,9 @@ def test_unported_modes_raise():
     coprocess.host_partition_pinned, clustered_probe_join, placement.place,
     placement.place_relation, placement.placement_sharding,
     placement.pinned_empty, placement.Uploader.__init__,
-    overlap_bench.streaming_leg, overlap_bench.coprocess_leg],
+    overlap_bench.streaming_leg, overlap_bench.coprocess_leg,
+    tmesh.make_mesh, tmesh.make_mesh_2d, tmesh.Mesh.__init__,
+    dryrun.dryrun_multichip],
     ids=lambda f: f.__qualname__)
 def test_the_card_is_the_default_device(entry):
     """The port's entry points run on the card unless the caller asks for
@@ -278,14 +281,23 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch.ops.perfect_hash\n"
         "import icde2019_gpu_join_tpu_torch.ops.merge\n"
         "import icde2019_gpu_join_tpu_torch.ops._build\n"
+        "import icde2019_gpu_join_tpu_torch.ops._launches\n"
         "import icde2019_gpu_join_tpu_torch.datagen\n"
         "import icde2019_gpu_join_tpu_torch.utils.datasets\n"
         "import icde2019_gpu_join_tpu_torch.utils.oracle\n"
         "import icde2019_gpu_join_tpu_torch.utils.timing\n"
+        "import icde2019_gpu_join_tpu_torch.ops.partition_radix\n"
+        "import icde2019_gpu_join_tpu_torch.parallel as P, pkgutil, importlib\n"
+        "names = [m.name for m in pkgutil.iter_modules(P.__path__)]\n"
+        "assert sorted(names) == ['comm', 'dist_join', 'dryrun', 'exchange', "
+        "'mesh', 'plan'], names\n"
+        "for name in names:\n"
+        "    importlib.import_module(P.__name__ + '.' + name)\n"
         "import icde2019_gpu_join_tpu_torch.benchmarks as B, pkgutil, importlib\n"
         "names = [m.name for m in pkgutil.iter_modules(B.__path__)]\n"
-        "assert sorted(names) == ['construct_probes', 'experimental_sort', "
-        "'merge_fix_validate', 'merge_sort_bench', 'overlap_bench'], names\n"
+        "assert sorted(names) == ['construct_probes', 'dist_bench', "
+        "'experimental_sort', 'merge_fix_validate', 'merge_sort_bench', "
+        "'overlap_bench'], names\n"
         "for name in names:\n"
         "    importlib.import_module(B.__name__ + '.' + name)\n"
         "import chip_smoke\n"
