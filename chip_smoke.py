@@ -121,26 +121,47 @@ run of all phases can pass. The phases:
   distributed  the distributed layer (`parallel/`) in two worlds on the card,
              its data and oracles all made before the first leg is timed.
              A 1-rank NCCL world (`torch.distributed`, a `file://` store):
-             config 5's three legs through the process-group entry points at
-             2^24 x 2^24 with payloads 1, segmented in 4 segments and one-shot
-             against the checked-in oracle value, and Zipf z=1.05 at seed 777
-             (generated here, no cache) segmented against the C++ oracle.
+             `run_configs` config 5's three legs, through its own one-card
+             code (`run_configs._one_rank_legs`), at 2^24 x 2^24 with
+             payloads 1, segmented in 4 segments and one-shot against the
+             checked-in oracle value, and Zipf z=1.05 at seed 777 (no .bin
+             cache) segmented against the C++ oracle; every line correct.
              Then an 8-rank thread world on the card at 2^22 x 2^22 global
              with full-range payloads: segmented in 4 segments; segmented
              with 30% of S on one key, where the heavy split must run (its
              executed per-rank loads and their spread printed, within 2x of
              the uniform share); the 2-level exchange on a 2 x 4 mesh; the
              materializing join as a multiset against the numpy oracle; and
-             the port's `dryrun_multichip(8)`. Every leg overflow 0 and equal
-             to its oracle, best of 3 after a warm-up, kernel 1 launched on
-             every aggregate leg and kernels 3, 4 and 2 on the materialize
-             leg. The warm-up calls record the (CH, W) each banded kernel
-             gets; each of kernels 1-4 is then held against its plain version
-             at the largest CH of each width W, with both times there.
+             the port's `dryrun_multichip(8)` (config 5's second leg). Every
+             leg overflow 0 and equal to its oracle, best of 3 after a
+             warm-up, kernel 1 launched on every aggregate leg and kernels 3,
+             4 and 2 on the materialize leg. The warm-up calls record the
+             (CH, W) each banded kernel gets; each of kernels 1-4 is then
+             held against its plain version at every one of them, with both
+             times at the largest and the smallest CH (a tail chunk) of
+             each width W.
              (Where the time of these legs goes: the port's
              `benchmarks/dist_bench.py`.)
+  surface    the user surface, on the .bin files the earlier phases wrote:
+             the port's CLI as the reference is invoked (`-b 7 -a HJC -R
+             1000000 -S 16000000`), then with `--materialize` and as `-b 8`,
+             each result line equal to the C++ oracle on the relations the
+             CLI read; the port's bench at 2^27 under "lax" (`correct`, the
+             checked-in aggregate; its JSON line printed); `run_configs`
+             configs 1 and 2 at their default sizes, every line correct
+             (config 5 at its default size is the distributed phase's
+             1-rank legs and dryrun); each call records the (CH, W) its
+             banded kernels get, and kernels 1-4 are held against their
+             plain versions at those shapes, as in the distributed phase;
+             both group-by paths at 2^24 rows and 64 groups, vals in
+             [0, 2^13), against `oracle.groupby_aggregate`, with their times;
+             the sort path once more under `profiling.maybe_trace` and
+             `annotate`, whose Chrome trace must hold the span and the
+             card's kernels.
+             Kernel 1 must launch on the CLI's join, the bench and each
+             configuration (kernel 3 on the materializing CLI call).
 The headline, sorts, materialize, partitioned, streaming, coprocess, late,
-pipeline and distributed phases, and
+pipeline, distributed and surface phases, and
 the four phases of the sort tools, each zero the kernels' launch counts just
 before they drive their path, read them just after, and fail if a kernel of
 the path did not launch. Then one JSON
@@ -154,11 +175,14 @@ that computes the tile sort on distinct keys (`torch.sort` along dim 1 +
 gather); no single call computes any of the other functions, so it is null
 there; the whole merge sort has `torch.sort` + gather beside it in the kernel
 merge phase. Kernel 1's entry also carries its launches in the streamed
-and the co-processed call (`launches_streaming`, `launches_coprocess`);
+and the co-processed call (`launches_streaming`, `launches_coprocess`) and
+on each call of the surface phase (`launches_surface`);
 kernels 1-4 carry their launches on each leg of the distributed phase
-(`launches_distributed`), and each of kernels 1-4 its error and times at
-the largest chunk of each width the distributed legs gave it
-(`at_distributed`). The probe ladder's entry carries, beside its bound, the
+(`launches_distributed`), and each of kernels 1-4 its holds at the shapes
+the distributed legs and the surface calls gave it (`at_distributed`,
+`at_surface`: every (CH, W) held, `held_at`, and the errors and times at
+the largest and the smallest chunk of each width, `timed`; their errors
+are folded into `max_abs_err`). The probe ladder's entry carries, beside its bound, the
 floor its launches set (`bound_launches_ms`): 13 x the device time of one
 empty launch (CUDA events around 100 of them back to back).
 Kernel 7's entry also carries its plan kernel's time
@@ -172,6 +196,7 @@ printed; that includes a machine without CUDA.
 import concurrent.futures
 import contextlib
 import functools
+import io
 import json
 import os
 import shutil
@@ -182,28 +207,28 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
-from icde2019_gpu_join_tpu_torch import datagen
-from icde2019_gpu_join_tpu_torch.benchmarks import (construct_probes,
+from icde2019_gpu_join_tpu_torch import cli, datagen
+from icde2019_gpu_join_tpu_torch.benchmarks import (bench, construct_probes,
                                                     experimental_sort,
                                                     merge_fix_validate,
                                                     merge_sort_bench,
-                                                    overlap_bench)
+                                                    overlap_bench, run_configs)
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import (ClusteredJoin,
                                                 clustered_probe_join,
                                                 dispatch_regime, pipelines)
 from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
-                                             merge, perfect_hash, probe_ranges)
+                                             groupby, merge, perfect_hash,
+                                             probe_ranges)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.parallel import dist_join, dryrun
 from icde2019_gpu_join_tpu_torch.parallel import plan as xplan
-from icde2019_gpu_join_tpu_torch.parallel.mesh import (group_mesh, make_mesh,
-                                                       make_mesh_2d)
+from icde2019_gpu_join_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from icde2019_gpu_join_tpu_torch.relation import Relation
-from icde2019_gpu_join_tpu_torch.utils import datasets, oracle, placement
+from icde2019_gpu_join_tpu_torch.utils import (datasets, oracle, placement,
+                                               profiling)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -282,16 +307,21 @@ CARD = {}                   # "int_ops_per_s", "line", set by phase_report
 # payload c + 1)
 STREAM_COPIES = 4
 # the distributed phase: config 5's 1-rank legs (benchmarks/run_configs.py:
-# 256-307) at 2^DIST_SCALE a side, its Zipf leg at its own seed; the thread
-# world's DIST_RANKS ranks at 2^DIST_THREAD_SCALE global rows a side, the
-# heavy leg with DIST_HOT of S on one key
+# 256-307) at 2^DIST_SCALE a side, its default size; the thread world's
+# DIST_RANKS ranks at 2^DIST_THREAD_SCALE global rows a side, the heavy leg
+# with DIST_HOT of S on one key
 DIST_SCALE = 24
-DIST_ZIPF_SEED = 777
 DIST_RANKS = 8
 DIST_THREAD_SCALE = 22
 DIST_HOT = 0.3
 # the empty launches timed back to back for the probe ladder's bound
 EMPTY_LAUNCHES = 100
+# the surface: the reference's own CLI invocation, the bench, run_configs
+SURFACE_CLI = ["-a", "HJC", "-R", "1000000", "-S", "16000000"]
+SURFACE_BENCH_SCALE = 27
+SURFACE_CONFIG1 = (1 << 20, 1 << 24)
+SURFACE_CONFIG2_SCALE = 27
+SURFACE_GROUPBY = (1 << 24, 64, 1 << 13)   # rows, groups, vals in [0, 2^13)
 
 
 def _oracle_value(scale: int, skew: float) -> int:
@@ -475,10 +505,7 @@ def _max_err(got, want) -> int:
 def phase_report() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = bench.card_line("cuda")
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -1879,7 +1906,7 @@ def _dist_leg(what: str, fn, check, kernels, report: list, counts: dict,
               seen: dict):
     """A warm-up call with its launches counted and checked and the kernels'
     shapes recorded, then the best of REPS, checked again. Records the
-    launches of `kernels`."""
+    launches of `kernels`; returns (the best seconds, the last result)."""
     with _shapes_seen(seen):
         out, launches = _launched(fn)
     check(out)
@@ -1889,54 +1916,32 @@ def _dist_leg(what: str, fn, check, kernels, report: list, counts: dict,
     counts[what] = {k: launches[k] for k in kernels}
     report.append(f"{what} {best * 1e3:.3f} ms (launches "
                   f"{', '.join(f'{k} {launches[k]}' for k in kernels)})")
-    return out
+    return best, out
 
 
-def _zipf_inputs():
-    """Config 5's Zipf leg at its own seed, with its C++ oracle: made here
-    and not through `datasets`, whose .bin cache is named by size alone and
-    holds seed 12345's keys."""
-    n = 1 << DIST_SCALE
-    rk = datagen.random_unique_gen(n, n, seed=DIST_ZIPF_SEED)
-    sk = datagen.gen_zipf(n, n, 1.05, seed=DIST_ZIPF_SEED)
-    ones = np.ones(n, np.int32)
-    return rk, sk, datagen.oracle_join_aggregate(rk, ones, sk, ones)
+def _nccl_legs(report: list, counts: dict, seen: dict):
+    """Config 5's legs in a 1-rank NCCL world, run by `run_configs`' own
+    one-card code, which makes the data and the oracles and judges each
+    line; each leg goes through `_dist_leg`, its warm-up and timed results
+    required to agree. NCCL's init failing fails the phase."""
+    k1 = ("banded_compare_sum",)
 
+    def run(tag, fn):
+        first = []
 
-def _nccl_legs(report: list, counts: dict, seen: dict, zipf):
-    """Config 5's legs in a 1-rank NCCL world, through the process-group
-    entry points; `zipf` is `_zipf_inputs()`. NCCL's init failing fails the
-    phase."""
-    n = 1 << DIST_SCALE
-    rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
-    rkz, skz, want_z = zipf
-    want = _oracle_value(DIST_SCALE, 0.0)
-    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"file://{store}/store",
-                            rank=0, world_size=1)
-    try:
-        comm = group_mesh().comm("x")
-        one = torch.ones(n, dtype=torch.int32, device=DEVICE)
-        r, s, rz, sz = (torch.from_numpy(a).to(DEVICE)
-                        for a in (rk, sk, rkz, skz))
-        k1 = ("banded_compare_sum",)
-        _dist_leg("nccl 1 rank segmented", lambda: (
-            dist_join.distributed_join_segmented_local(
-                r, one, s, one, comm, num_segments=4)),
-            _expect_agg("segmented", want), k1, report, counts, seen)
-        _dist_leg("nccl 1 rank one-shot", lambda: (
-            dist_join.distributed_join_aggregate_local(r, one, s, one, comm)),
-            _expect_agg("one-shot", want), k1, report, counts, seen)
-        _dist_leg("nccl 1 rank zipf1.05 seed 777 segmented", lambda: (
-            dist_join.distributed_join_segmented_local(
-                rz, one, sz, one, comm, num_segments=4)),
-            _expect_agg("zipf segmented", want_z), k1, report, counts, seen)
-        report.append(f"2^{DIST_SCALE} x 2^{DIST_SCALE}, payloads 1, oracles "
-                      f"{want} (checked in) and {want_z} (C++)")
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(store, ignore_errors=True)
+        def check(out):
+            got = (int(out[0]), int(out[1]))
+            if first and got != first[0]:
+                raise AssertionError(f"{tag}: warm-up {first[0]}, then {got}")
+            first.append(got)
+        return _dist_leg(f"nccl 1 rank {tag}", fn, check, k1, report, counts,
+                         seen)
+
+    lines = run_configs._one_rank_legs(1 << DIST_SCALE, DEVICE, run=run)
+    bad = [line for line in lines if not line["correct"]]
+    if bad:
+        raise AssertionError(f"run_configs config 5: {bad}")
+    return lines
 
 
 def _thread_inputs():
@@ -1984,7 +1989,7 @@ def _thread_legs(report: list, counts: dict, seen: dict, inputs, wants,
             raise AssertionError(f"heavy split: executed loads {loads.tolist()}"
                                  f" (sum {loads.sum()}, {n} probe rows)")
 
-    _, _, loads = _dist_leg(
+    _, (_, _, loads) = _dist_leg(
         f"{tag} segmented heavy split", lambda: (
             dist_join.distributed_join_segmented(
                 r, p_r, s_hot, p_s, mesh, num_segments=4, return_loads=True)),
@@ -2029,49 +2034,182 @@ def _thread_legs(report: list, counts: dict, seen: dict, inputs, wants,
 
 
 def _hold_seen(seen: dict, report: list) -> dict:
-    """Each banded kernel against its plain version at the largest CH of
-    each width W that the distributed legs gave it, with both times there."""
+    """Each banded kernel against its plain version at every (CH, W) in
+    `seen`, and both times at the largest and the smallest CH (a tail
+    chunk) of each width W. Per kernel: {"held_at": the shapes,
+    "max_abs_err", "timed": the ends' errors and times}."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 1)
     held = {}
     for name in KERNELS:
-        widest = {}
-        for ch, w in seen.get(name, ()):
-            widest[w] = max(widest.get(w, 0), ch)
-        held[name] = []
-        for w, ch in sorted(widest.items()):
+        shapes = sorted(seen.get(name, ()), key=lambda shape: shape[::-1])
+        err = _hold(name, shapes, gen)
+        ends = {}
+        for ch, w in shapes:
+            lo, hi = ends.get(w, (ch, ch))
+            ends[w] = (min(lo, ch), max(hi, ch))
+        timed = []
+        for ch, w in sorted({(ch, w) for w, pair in ends.items() for ch in pair},
+                            key=lambda shape: shape[::-1]):
             st = {"shape": [ch, w], "max_abs_err": _hold(name, [(ch, w)], gen),
                   **_time_at(name, ch, w, gen)}
-            held[name].append(st)
-            report.append(f"{name} at ({ch}, {w}): equal to plain, kernel "
-                          f"{st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
-                          f"bound {st['bound_ms']:.4f} ms by {st['bound_by']}")
+            timed.append(st)
+            report.append(f"{name} at ({ch}, {w}): kernel {st['ms']:.4f} ms, "
+                          f"plain {st['plain_ms']:.4f} ms, bound "
+                          f"{st['bound_ms']:.4f} ms by {st['bound_by']}")
+        if shapes:
+            report.append(f"{name} equal to plain at all {len(shapes)} (CH, W) "
+                          f"seen: {shapes}")
+        held[name] = {"held_at": [list(shape) for shape in shapes],
+                      "max_abs_err": max([err] + [st["max_abs_err"]
+                                                  for st in timed]),
+                      "timed": timed}
     return held
 
 
 def phase_distributed() -> tuple:
     """Returns, for each of kernels 1-4, its launches on each leg, and its
-    error and times at the legs' largest chunks. The data and the oracles
-    are all made before the first leg, so no leg is timed beside host work
-    of the script's own."""
+    holds at the shapes the legs gave it (`_hold_seen`); and config 5's
+    lines. Each world's data and oracles are made before its first leg, so
+    no leg is timed beside host work of the script's own."""
     report, counts, seen = [], {}, {}
+    c5 = _nccl_legs(report, counts, seen)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        zipf = pool.submit(_zipf_inputs)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
         inputs = _thread_inputs()
         pairs = pool.submit(oracle.join_materialize, *inputs[:4])
         rk, rp, sk, sp, hot = inputs
         wants = (datagen.oracle_join_aggregate(rk, rp, sk, sp),
                  datagen.oracle_join_aggregate(rk, rp, hot, sp))
-        zipf, pairs = zipf.result(), pairs.result()
-    report.append(f"data and oracles {time.perf_counter() - t0:.1f}s, before "
-                  f"the legs")
-    _nccl_legs(report, counts, seen, zipf)
+        pairs = pairs.result()
+    report.append(f"thread world's data and oracles "
+                  f"{time.perf_counter() - t0:.1f}s, before its legs")
     _thread_legs(report, counts, seen, inputs, wants, pairs)
     held = _hold_seen(seen, report)
     print("[distributed] " + "; ".join(report))
     return ({name: {leg: c[name] for leg, c in counts.items() if name in c}
-             for name in KERNELS}, held)
+             for name in KERNELS}, held, c5)
+
+
+# ---- the surface: CLI, bench, run_configs, group-by ------------------------
+
+def _cli_run(argv, seen: dict):
+    """`cli.main(argv)` on the card, its stdout captured and its banded
+    kernels' shapes recorded; returns (the `N results` number, the lines,
+    the launch counts of the call)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), _shapes_seen(seen):
+        rc, launches = _launched(lambda: cli.main(argv, device=DEVICE))
+    lines = out.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}: {lines}")
+    (result,) = [int(line.split()[0]) for line in lines
+                 if line.endswith(" results")]
+    return result, lines, launches
+
+
+def _surface_cli(report: list, k1: dict, seen: dict):
+    """The reference's invocation (-b 7), then --materialize and -b 8, each
+    equal to the C++ oracle on the relations the CLI reads."""
+    n_r, n_s = int(SURFACE_CLI[3]), int(SURFACE_CLI[5])
+    rk, sk = datasets.make_pk_fk(n_r, n_s, seed=SEED)   # the CLI's .bin files
+    want = datagen.oracle_join_aggregate(rk, np.ones(n_r, np.int32), sk,
+                                         np.ones(n_s, np.int32))
+    for tag, argv, kernels in (
+            ("cli -b 7", ["-b", "7"], ("banded_compare_sum",)),
+            ("cli --materialize", ["-b", "7", "--materialize"],
+             ("banded_compare_first",)),
+            ("cli -b 8", ["-b", "8"], ())):
+        got, lines, launches = _cli_run(argv + SURFACE_CLI, seen)
+        if got & 0xFFFFFFFF != want & 0xFFFFFFFF:
+            raise AssertionError(f"{tag}: {got} results, C++ oracle {want}")
+        _require(launches, tag, *kernels)
+        k1[tag] = launches["banded_compare_sum"]
+        ran = {k: v for k, v in launches.items() if v}
+        report.append(f"{tag} {n_r} x {n_s}: {got} results = C++ oracle "
+                      f"({'; '.join(lines[2:5])}; launches {ran})")
+
+
+def _surface_groupby(report: list):
+    """Both group-by paths at 2^24 rows on the card against
+    `oracle.groupby_aggregate`, with their device times."""
+    n, groups, hi = SURFACE_GROUPBY
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 10)
+    g = _ints(gen, 0, groups, (n,))
+    v = _ints(gen, 0, hi, (n,))
+    want = oracle.groupby_aggregate(g.cpu().numpy(), v.cpu().numpy(), groups)
+    for name, fn in (("sort", groupby.groupby_count_sum),
+                     ("one-hot", groupby.groupby_count_sum_onehot)):
+        got = fn(g, v, groups)
+        for col, w, what in zip(got, want, ("COUNT", "SUM")):
+            if not np.array_equal(col.cpu().numpy(), w):
+                raise AssertionError(f"group-by {name} {what} != oracle")
+        ms = _time_ms(lambda: fn(g, v, groups), REPS)
+        report.append(f"group-by {name} 2^{n.bit_length() - 1} rows x "
+                      f"{groups} groups = oracle, {ms:.3f} ms")
+    # the profiler hooks: one call traced under an annotation; the Chrome
+    # trace must hold the span and, on the card, the card's kernels
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profiling.maybe_trace("surface", logdir, device=DEVICE):
+            with profiling.annotate("surface.groupby", device=DEVICE):
+                groupby.groupby_count_sum(g, v, groups)
+                torch.cuda.synchronize()
+        (trace,) = os.listdir(os.path.join(logdir, "surface"))
+        with open(os.path.join(logdir, "surface", trace)) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    spans = sum(e.get("name") == "surface.groupby" for e in events)
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    if not spans or (DEVICE == "cuda" and not kernels):
+        raise AssertionError(f"profiler trace: {spans} spans, {kernels} kernels")
+    report.append(f"profiler trace of the sort group-by: its span and "
+                  f"{kernels} kernels")
+
+
+def phase_surface(c5=None) -> tuple:
+    """The user surface on the card: the CLI, the bench at 2^27, run_configs
+    configs 1 and 2 at their default sizes, the group-by; `c5` is config 5's
+    lines from the distributed phase, reported here. Returns kernel 1's
+    launches on each call, and kernels 1-4's holds at the shapes the calls
+    gave them (`_hold_seen`)."""
+    report, k1, seen = [], {}, {}
+    _surface_cli(report, k1, seen)
+
+    with _shapes_seen(seen):
+        line, launches = _launched(lambda: bench.run(
+            scale=SURFACE_BENCH_SCALE, reps=REPS, sort_impl="lax",
+            device=DEVICE))
+    want = _oracle_value(SURFACE_BENCH_SCALE, 0.0)
+    if not line["correct"] or line["aggregate"] != want:
+        raise AssertionError(f"bench: {line}; checked-in oracle {want}")
+    _require(launches, "bench", "banded_compare_sum")
+    k1["bench"] = launches["banded_compare_sum"]
+    print(json.dumps(line))
+
+    for tag, fn in (
+            ("config 1", lambda: [run_configs.config1(DEVICE, *SURFACE_CONFIG1)]),
+            ("config 2", lambda: run_configs.config2(SURFACE_CONFIG2_SCALE,
+                                                     DEVICE))):
+        with _shapes_seen(seen):
+            lines, launches = _launched(fn)
+        bad = [ln for ln in lines if not ln["correct"]]
+        if bad:
+            raise AssertionError(f"run_configs {tag}: {bad}")
+        _require(launches, tag, "banded_compare_sum")
+        k1[tag] = launches["banded_compare_sum"]
+        report.append(f"run_configs {tag}: {len(lines)} lines correct")
+    if c5 is not None:
+        report.append(f"run_configs config 5: {len(c5)} lines correct, in "
+                      f"the distributed phase, with dryrun_multichip(8)")
+
+    held = _hold_seen(seen, report)
+    _surface_groupby(report)
+    report.append(f"kernel 1 launches {k1}")
+    print("[surface] " + "; ".join(report))
+    return k1, held
 
 
 def _timed(name, fn, *args):
@@ -2084,7 +2222,7 @@ def _timed(name, fn, *args):
 PHASES = ("kernel", "kernel ranges", "kernel merge", "kernel sort tiles",
           "kernel stage", "probes", "sort tools", "mid", "headline", "sorts",
           "materialize", "partitioned", "streaming", "coprocess", "late",
-          "pipeline", "distributed")
+          "pipeline", "distributed", "surface")
 # phases that join the headline's 2^27 relations, which `headline` makes
 NEED_HEADLINE = ("sorts", "materialize", "partitioned", "streaming",
                  "coprocess")
@@ -2106,7 +2244,7 @@ def _partial(names) -> int:
              "kernel stage": phase_kernel_stage, "probes": phase_probes,
              "sort tools": phase_sort_tools, "mid": phase_mid,
              "late": phase_late, "pipeline": phase_pipeline,
-             "distributed": phase_distributed}
+             "distributed": phase_distributed, "surface": phase_surface}
     with_big = {"sorts": phase_sorts, "materialize": phase_materialize,
                 "partitioned": phase_partitioned,
                 "streaming": phase_streaming, "coprocess": phase_coprocess}
@@ -2164,12 +2302,17 @@ def main(argv=None):
     _timed("late", phase_late)
     pipe = _timed("pipeline", phase_pipeline)
     torch.cuda.empty_cache()
-    legs, held = _timed("distributed", phase_distributed)
+    legs, held, c5 = _timed("distributed", phase_distributed)
+    torch.cuda.empty_cache()
+    k1_surface, at_surface = _timed("surface", phase_surface, c5)
+    kstats["banded_compare_sum"]["launches_surface"] = k1_surface
     for name in KERNELS:
         kstats[name]["launches_distributed"] = legs[name]
         kstats[name]["at_distributed"] = held[name]
-        kstats[name]["max_abs_err"] = max(
-            [kstats[name]["max_abs_err"]] + [h["max_abs_err"] for h in held[name]])
+        kstats[name]["at_surface"] = at_surface[name]
+        kstats[name]["max_abs_err"] = max(kstats[name]["max_abs_err"],
+                                          held[name]["max_abs_err"],
+                                          at_surface[name]["max_abs_err"])
     # each kernel's launches on its path: the aggregate, the config-3
     # pipeline, the config-2 ring, the 2^24 fast-path materialize, the
     # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"; the tile

@@ -3,6 +3,7 @@ device, and the radix-partitioned CSR layout (`PartitionedRelation`)."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -14,10 +15,15 @@ class Relation:
 
     KEY-DOMAIN CONTRACT (as in the JAX package): keys must be >= 0. The
     engine reserves -1 as the pad sentinel; a negative real key corrupts
-    aggregates. Payload defaults to row ids."""
+    aggregates. With TPUJOIN_DEBUG set (the JAX package's variable) the
+    keys are checked here (`utils.debug.validate_key_domain`). Payload
+    defaults to row ids."""
 
     def __init__(self, keys: torch.Tensor, payload: Optional[torch.Tensor] = None,
                  device=None):
+        if os.environ.get("TPUJOIN_DEBUG"):
+            from icde2019_gpu_join_tpu_torch.utils.debug import validate_key_domain
+            validate_key_domain(keys)
         device = torch.device(device) if device is not None else keys.device
         if payload is None:
             payload = torch.arange(keys.shape[0], dtype=torch.int32,

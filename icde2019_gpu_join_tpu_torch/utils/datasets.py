@@ -45,6 +45,18 @@ def zipf_filename(n: int, skew: float) -> str:
     return os.path.join(cache_dir(), f"unique_skew{skew:.2f}_S{n}.bin")
 
 
+def nonunique_filename(side: str, n: int) -> str:
+    return os.path.join(cache_dir(), f"nonUnique_{side}{n}.bin")
+
+
+def pk_filename(n: int) -> str:
+    return os.path.join(cache_dir(), f"pk_R{n}.bin")
+
+
+def fk_filename(n_s: int, n_r: int) -> str:
+    return os.path.join(cache_dir(), f"fk_S{n_s}_pk_R{n_r}.bin")
+
+
 def _cached(path: str, n: int, gen_fn: Callable[[], np.ndarray]) -> np.ndarray:
     arr = read_bin(path, n)
     if arr is not None:
@@ -63,8 +75,20 @@ def create_relation_unique(n: int, maxid: Optional[int] = None, seed: int = 1234
     return _cached(unique_filename(n), n, lambda: datagen.random_unique_gen(n, maxid, seed))
 
 
+def create_relation_nonunique(path: str, n: int, maxid: int, seed: int = 12345) -> np.ndarray:
+    """Uniform keys in [0, maxid), cached at `path` (reference random_gen)."""
+    return _cached(path, n, lambda: datagen.random_gen(n, maxid, seed))
+
+
 def create_relation_zipf(n: int, alphabet_size: int, z: float, seed: int = 12345) -> np.ndarray:
     return _cached(zipf_filename(n, z), n, lambda: datagen.gen_zipf(n, alphabet_size, z, seed))
+
+
+def create_relation_fk_from_pk(n_s: int, pk: np.ndarray, seed: int = 12345) -> np.ndarray:
+    """n_s foreign keys drawn from the keys of `pk` (reference
+    create_relation_fk_from_pk), cached by both sizes."""
+    return _cached(fk_filename(n_s, pk.shape[0]), n_s,
+                   lambda: datagen.fk_from_pk(n_s, pk, seed))
 
 
 def make_pk_fk(
@@ -84,6 +108,13 @@ def make_pk_fk(
                 n_s, min(n_r, (1 << 31) - 2), seed + 1),
         )
     return r, s
+
+
+def create_relation_n(base: np.ndarray, multiplier: int) -> np.ndarray:
+    """`base` tiled `multiplier` times (create_relation_n,
+    src/generator_ETHZ.cu:97-109, whose shuffle is commented out); the
+    -x / -y size multipliers of the CLI (src/main.cu:103-105, 212, 245)."""
+    return np.tile(np.asarray(base, dtype=np.int32), int(multiplier))
 
 
 def make_config3(n_r: int, n_s: int, groups: int = 64, seed: int = 42):

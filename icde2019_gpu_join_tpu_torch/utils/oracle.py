@@ -1,6 +1,6 @@
 """NumPy oracles for radix partitioning, the join count, aggregate,
-materialization, late materialization and the fused filter -> probe ->
-group-by pipeline.
+materialization, late materialization, the group-by aggregate, the
+selection and the fused filter -> probe -> group-by pipeline.
 
 Ported as written from `icde2019_gpu_join_tpu/utils/oracle.py`. Semantics
 (src/join-primitives.cu:1052-1092): equi-join on int32 keys;
@@ -118,6 +118,22 @@ def join_late_materialize_sum(
     if s_cols.size:
         total += np.sum(s_cols[ssel].astype(np.uint32), dtype=np.uint64)
     return int(np.uint32(total).view(np.int32))
+
+
+def groupby_aggregate(
+    keys: np.ndarray, vals: np.ndarray, num_groups: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Hash aggregate: per-group COUNT and SUM(vals) (int32 wraparound)."""
+    cnt = np.bincount(keys, minlength=num_groups).astype(np.int32)
+    sums = np.zeros(num_groups, dtype=np.uint64)
+    np.add.at(sums, keys, vals.astype(np.uint32).astype(np.uint64))
+    return cnt, sums.astype(np.uint32).view(np.int32)
+
+
+def filter_rows(keys: np.ndarray, vals: np.ndarray, lo: int, hi: int):
+    """Selection: rows with lo <= key < hi, order-preserving."""
+    m = (keys >= lo) & (keys < hi)
+    return keys[m], vals[m]
 
 
 def filter_probe_groupby(r_keys, r_pay, s_keys, s_filter, s_gid, lo, hi,

@@ -25,15 +25,20 @@ class Phase:
     rows: int = 0
 
 
-def _on_cuda(result) -> bool:
+def cuda_device_of(result) -> Optional[torch.device]:
+    """The device of the first CUDA tensor in `result` (a tensor, or a tuple
+    or list of them), None when it holds none."""
     items = result if isinstance(result, (tuple, list)) else (result,)
-    return any(isinstance(x, torch.Tensor) and x.is_cuda for x in items)
+    for x in items:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            return x.device
+    return None
 
 
 @dataclass
 class PhaseTimer:
     """Collects named phases; a phase that sets `out["result"]` to CUDA
-    tensors is closed by `torch.cuda.synchronize()`."""
+    tensors is closed by synchronising the card of the first of them."""
 
     phases: List[Phase] = field(default_factory=list)
 
@@ -45,8 +50,9 @@ class PhaseTimer:
             with torch.profiler.record_function(f"tpujoin.{name}"):
                 yield out
         finally:
-            if "result" in out and _on_cuda(out["result"]):
-                torch.cuda.synchronize()
+            dev = cuda_device_of(out.get("result"))
+            if dev is not None:
+                torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
             self.phases.append(Phase(name, t1 - t0, bytes_moved, rows))
 

@@ -28,7 +28,10 @@ from icde2019_gpu_join_tpu_torch.parallel import dryrun, mesh as tmesh
 from icde2019_gpu_join_tpu_torch.relation import PartitionedRelation, Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets as tdatasets
 from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
-from icde2019_gpu_join_tpu_torch.utils import placement
+from icde2019_gpu_join_tpu_torch.utils import placement, profiling, timing
+from icde2019_gpu_join_tpu_torch import cli as tcli, entry as tentry
+from icde2019_gpu_join_tpu_torch.benchmarks import bench as tbench
+from icde2019_gpu_join_tpu_torch.benchmarks import run_configs
 from tests.conftest import make_tables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,7 +102,10 @@ def test_unported_modes_raise():
     placement.pinned_empty, placement.Uploader.__init__,
     overlap_bench.streaming_leg, overlap_bench.coprocess_leg,
     tmesh.make_mesh, tmesh.make_mesh_2d, tmesh.Mesh.__init__,
-    dryrun.dryrun_multichip],
+    dryrun.dryrun_multichip, tcli.main, tentry.entry, tbench.run,
+    run_configs.config1, run_configs.config2, run_configs.config3,
+    run_configs.config4, run_configs.config5, run_configs.config6,
+    profiling.trace, profiling.maybe_trace, profiling.annotate],
     ids=lambda f: f.__qualname__)
 def test_the_card_is_the_default_device(entry):
     """The port's entry points run on the card unless the caller asks for
@@ -252,6 +258,80 @@ def test_fk_from_pk_byte_identical():
         jdatagen.fk_from_pk(3000, pk, 9).tobytes()
 
 
+@pytest.mark.parametrize("name,args", [
+    ("nonunique_filename", ("R", 123)), ("nonunique_filename", ("S", 9)),
+    ("pk_filename", (77,)), ("fk_filename", (300, 77)),
+    ("unique_filename", (5,)), ("zipf_filename", (40, 1.05))])
+def test_dataset_file_names_equal_jax(tmp_path, monkeypatch, name, args):
+    monkeypatch.setenv("TPU_JOIN_DATA_DIR", str(tmp_path))
+    assert getattr(tdatasets, name)(*args) == getattr(jdatasets, name)(*args)
+
+
+def test_dataset_helpers_byte_identical(tmp_path, monkeypatch):
+    """create_relation_nonunique, create_relation_fk_from_pk (full-range PK
+    keys, as --full-range draws them) and create_relation_n write and
+    return what the JAX package's do."""
+    out = {}
+    for pkg, mod in (("jax", jdatasets), ("port", tdatasets)):
+        monkeypatch.setenv("TPU_JOIN_DATA_DIR", str(tmp_path / pkg))
+        pk = mod.create_relation_nonunique(mod.pk_filename(900), 900,
+                                           2**31 - 1, 5)
+        fk = mod.create_relation_fk_from_pk(4000, pk, 5)
+        nu = mod.create_relation_nonunique(mod.nonunique_filename("S", 700),
+                                           700, 350, 5)
+        out[pkg] = (pk, fk, nu, mod.create_relation_n(nu, 3))
+    for a, b in zip(out["port"], out["jax"]):
+        assert a.dtype == b.dtype == np.int32 and a.tobytes() == b.tobytes()
+    assert out["port"][0].max() > 2**30 and out["port"][3].size == 2100
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 3
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a card: lets the timer's device choice be
+    seen without one."""
+    index = 0
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def device(self):
+        return torch.device("cuda", self.index)
+
+
+def _on_card(index):
+    t = torch.zeros(1).as_subclass(_OnCard)
+    t.index = index
+    return t
+
+
+@pytest.mark.parametrize("result,want", [
+    (None, None), (3, None), (torch.zeros(2), None),
+    ((torch.zeros(2), torch.ones(1, device="meta")), None),
+    ([torch.zeros(1), "x"], None),
+    ("card1", torch.device("cuda", 1)),
+    ("cpu_card1_card0", torch.device("cuda", 1))])
+def test_timer_syncs_the_device_of_the_first_cuda_tensor(monkeypatch, result,
+                                                         want):
+    if result == "card1":
+        result = _on_card(1)
+    elif result == "cpu_card1_card0":
+        result = (torch.zeros(1), _on_card(1), _on_card(0))
+    assert timing.cuda_device_of(result) == want
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    timer = timing.PhaseTimer()
+    with timer.phase("p") as out:
+        out["result"] = result
+    assert synced == ([] if want is None else [want])
+    assert timer.seconds("p") >= 0
+
+
 def test_cpp_oracle_matches_jax(rng):
     rk, rp, sk, sp = make_tables(rng, n_r=3000, n_s=12000, dup_build=True)
     got = tdatagen.oracle_join_aggregate(rk, rp, sk, sp)
@@ -287,6 +367,21 @@ def test_port_never_imports_jax():
         "import icde2019_gpu_join_tpu_torch.utils.oracle\n"
         "import icde2019_gpu_join_tpu_torch.utils.timing\n"
         "import icde2019_gpu_join_tpu_torch.ops.partition_radix\n"
+        "import icde2019_gpu_join_tpu_torch.ops as O, pkgutil, importlib\n"
+        "names = [m.name for m in pkgutil.iter_modules(O.__path__)]\n"
+        "assert {'groupby', 'scan'} <= set(names), names\n"
+        "for name in names:\n"
+        "    importlib.import_module(O.__name__ + '.' + name)\n"
+        "import icde2019_gpu_join_tpu_torch.ops._build as BLD\n"
+        "assert not BLD._loaded, 'importing ops built a library'\n"
+        "import icde2019_gpu_join_tpu_torch.utils as U\n"
+        "names = [m.name for m in pkgutil.iter_modules(U.__path__)]\n"
+        "assert sorted(names) == ['datasets', 'debug', 'oracle', "
+        "'placement', 'profiling', 'timing'], names\n"
+        "for name in names:\n"
+        "    importlib.import_module(U.__name__ + '.' + name)\n"
+        "import icde2019_gpu_join_tpu_torch.cli\n"
+        "import icde2019_gpu_join_tpu_torch.entry\n"
         "import icde2019_gpu_join_tpu_torch.parallel as P, pkgutil, importlib\n"
         "names = [m.name for m in pkgutil.iter_modules(P.__path__)]\n"
         "assert sorted(names) == ['comm', 'dist_join', 'dryrun', 'exchange', "
@@ -295,9 +390,9 @@ def test_port_never_imports_jax():
         "    importlib.import_module(P.__name__ + '.' + name)\n"
         "import icde2019_gpu_join_tpu_torch.benchmarks as B, pkgutil, importlib\n"
         "names = [m.name for m in pkgutil.iter_modules(B.__path__)]\n"
-        "assert sorted(names) == ['construct_probes', 'dist_bench', "
+        "assert sorted(names) == ['bench', 'construct_probes', 'dist_bench', "
         "'experimental_sort', 'merge_fix_validate', 'merge_sort_bench', "
-        "'overlap_bench'], names\n"
+        "'overlap_bench', 'precache_oracles', 'run_configs'], names\n"
         "for name in names:\n"
         "    importlib.import_module(B.__name__ + '.' + name)\n"
         "import chip_smoke\n"
