@@ -9,7 +9,8 @@ along where a phase joins its relations), each whole, and ends with a line
 that names them: it prints no `kernels` line and no result line, so only a
 run of all phases can pass. The phases:
 
-  report     torch and CUDA versions, the card's name and power limit;
+  report     torch and CUDA versions, the card's name and power limit, its
+             memory and integer rates (`utils/timing`);
   build      the CUDA kernel library (nvcc, sm_90a) and the C++ host library,
              side by side;
   kernel     each of the first five kernels against its plain version on the card,
@@ -147,7 +148,10 @@ run of all phases can pass. The phases:
              1000000 -S 16000000`), then with `--materialize` and as `-b 8`,
              each result line equal to the C++ oracle on the relations the
              CLI read; the port's bench at 2^27 under "lax" (`correct`, the
-             checked-in aggregate; its JSON line printed); `run_configs`
+             checked-in aggregate; its JSON line printed; its three
+             speed-of-light shares each in (0, 1], its `hbm_gbps` the data
+             sheet's for the card's name, its measured sort rate > 0);
+             `run_configs`
              configs 1 and 2 at their default sizes, every line correct
              (config 5 at its default size is the distributed phase's
              1-rank legs and dryrun); each call records the (CH, W) its
@@ -159,7 +163,12 @@ run of all phases can pass. The phases:
              `annotate`, whose Chrome trace must hold the span and the
              card's kernels.
              Kernel 1 must launch on the CLI's join, the bench and each
-             configuration (kernel 3 on the materializing CLI call).
+             configuration (kernel 3 on the materializing CLI call);
+  rates      the three rate tools (no kernel of their own) at 2^24 rows
+             through their entry points, `microbench`, `radix_proto_bench`
+             and `sortgeom_bench all`: exit 0, every line's keys, every
+             time > 0, every grouping's output holding the input's rows;
+             their lines printed.
 The headline, sorts, materialize, partitioned, streaming, coprocess, late,
 pipeline, distributed and surface phases, and
 the four phases of the sort tools, each zero the kernels' launch counts just
@@ -168,9 +177,11 @@ the path did not launch. Then one JSON
 line on the kernels: each with its launches on its path, its time and its
 plain version's at the path's shape, and its bound there, the larger of the
 bytes it must move (each input read once, each output written once) over
-3.35 TB/s and the integer operations its function needs over the card's
-integer rate (SMs x 64 int32 lanes x the SM clock `nvidia-smi` reports;
-`KERNEL_OPS` says what is counted). `library_ms` is the one PyTorch call
+the card's data-sheet memory rate (`utils/timing.detect_hbm_gbps`: 3.35
+TB/s on the H100 SXM) and the integer operations its function needs over
+the card's integer rate (`utils/timing.int_ops_per_s`: SMs x 64 int32
+lanes x the maximum SM clock `nvidia-smi` reports; `KERNEL_OPS` says what
+is counted). `library_ms` is the one PyTorch call
 that computes the tile sort on distinct keys (`torch.sort` along dim 1 +
 gather); no single call computes any of the other functions, so it is null
 there; the whole merge sort has `torch.sort` + gather beside it in the kernel
@@ -200,7 +211,6 @@ import io
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -213,7 +223,11 @@ from icde2019_gpu_join_tpu_torch.benchmarks import (bench, construct_probes,
                                                     experimental_sort,
                                                     merge_fix_validate,
                                                     merge_sort_bench,
-                                                    overlap_bench, run_configs)
+                                                    microbench,
+                                                    overlap_bench,
+                                                    radix_proto_bench,
+                                                    run_configs,
+                                                    sortgeom_bench)
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import (ClusteredJoin,
                                                 clustered_probe_join,
@@ -228,7 +242,7 @@ from icde2019_gpu_join_tpu_torch.parallel import plan as xplan
 from icde2019_gpu_join_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from icde2019_gpu_join_tpu_torch.relation import Relation
 from icde2019_gpu_join_tpu_torch.utils import (datasets, oracle, placement,
-                                               profiling)
+                                               profiling, timing)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -300,9 +314,9 @@ PROBE_ELEMENTS = {
     "dirmask_stage": 3 << 14, "sublane_ladder": 3 << 14,
     "lane_ladder_T": 3 << 14, "concat_merge": 4 << 14,
     "min_dma_compute": 2 << 15, "full_merge_T": 3 << 14, "merge_T_dm": 3 << 14}
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
-INT32_LANES_PER_SM = 64
-CARD = {}                   # "int_ops_per_s", "line", set by phase_report
+# "hbm_bytes_per_s", "int_ops_per_s" (`utils/timing`'s figures) and "line",
+# set by phase_report
+CARD = {}
 # S of the streamed leg: this many copies of the headline's S (copy c has
 # payload c + 1)
 STREAM_COPIES = 4
@@ -322,6 +336,17 @@ SURFACE_BENCH_SCALE = 27
 SURFACE_CONFIG1 = (1 << 20, 1 << 24)
 SURFACE_CONFIG2_SCALE = 27
 SURFACE_GROUPBY = (1 << 24, 64, 1 << 13)   # rows, groups, vals in [0, 2^13)
+# the rate tools: log2 rows, and each tool's arguments and the keys every
+# line of it holds
+RATES_SCALE = 24
+RATE_TOOLS = {
+    "microbench": (microbench, [], {"op", "n", "ms", "bytes",
+                                    "gbps_effective"}),
+    "radix_proto_bench": (radix_proto_bench, [], {"op", "bits", "chunk", "n",
+                                                  "ms", "mrows_s", "ok"}),
+    "sortgeom_bench": (sortgeom_bench, ["all"], {"op", "shape", "n", "ms",
+                                                 "mrows_s", "check"}),
+}
 
 
 def _oracle_value(scale: int, skew: float) -> int:
@@ -378,7 +403,7 @@ def _launched(fn):
 def _bound(nbytes: int, int_ops: int) -> dict:
     """The least time the card could take: the bytes over the memory rate or
     the integer operations over the integer rate, whichever is larger."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_bytes = nbytes / CARD["hbm_bytes_per_s"] * 1e3
     by_ops = int_ops / CARD["int_ops_per_s"] * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -506,19 +531,16 @@ def phase_report() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     smi = bench.card_line("cuda")
-    sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    CARD["int_ops_per_s"] = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
+    CARD["hbm_bytes_per_s"] = timing.detect_hbm_gbps("cuda") * 1e9
+    CARD["int_ops_per_s"] = timing.int_ops_per_s("cuda")
     CARD["line"] = smi
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[report] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}; {sms} SMs x "
-          f"{INT32_LANES_PER_SM} int32 lanes x {sm_mhz:.0f} MHz = "
-          f"{CARD['int_ops_per_s']:.3e} integer operations/s")
+          f"{timing.INT32_LANES_PER_SM} int32 lanes x the max SM clock = "
+          f"{CARD['int_ops_per_s']:.3e} integer operations/s; memory "
+          f"{CARD['hbm_bytes_per_s']:.3e} B/s")
     print(smi)
     return kind
 
@@ -2169,6 +2191,20 @@ def _surface_groupby(report: list):
                   f"{kernels} kernels")
 
 
+def _check_shares(line: dict):
+    """The bench's speed-of-light shares each in (0, 1], its memory rate
+    the data sheet's for the card's name, its measured sort rate > 0."""
+    bad = [key for key in bench.SHARES if not 0 < line[key] <= 1]
+    if bad:
+        raise AssertionError(f"bench: shares {bad} outside (0, 1]: {line}")
+    sheet = timing.datasheet_hbm_gbps(torch.cuda.get_device_name(0))
+    if line["hbm_gbps"] != sheet:
+        raise AssertionError(f"bench: hbm_gbps {line['hbm_gbps']}, the data "
+                             f"sheet's {sheet}")
+    if not line["sort_frontier_rows_s"] > 0:
+        raise AssertionError(f"bench: sort rate {line['sort_frontier_rows_s']}")
+
+
 def phase_surface(c5=None) -> tuple:
     """The user surface on the card: the CLI, the bench at 2^27, run_configs
     configs 1 and 2 at their default sizes, the group-by; `c5` is config 5's
@@ -2188,6 +2224,9 @@ def phase_surface(c5=None) -> tuple:
     _require(launches, "bench", "banded_compare_sum")
     k1["bench"] = launches["banded_compare_sum"]
     print(json.dumps(line))
+    _check_shares(line)
+    report.append("bench shares " + ", ".join(
+        f"{key} {line[key]:.4f}" for key in bench.SHARES))
 
     for tag, fn in (
             ("config 1", lambda: [run_configs.config1(DEVICE, *SURFACE_CONFIG1)]),
@@ -2212,6 +2251,28 @@ def phase_surface(c5=None) -> tuple:
     return k1, held
 
 
+def phase_rates():
+    """The three rate tools at 2^RATES_SCALE rows through their entry
+    points: exit 0, every line with its keys, every time > 0, every
+    grouping's output holding the input's rows (`ok`), the card's line
+    last. Their lines are printed as they come."""
+    for name, (tool, argv, keys) in RATE_TOOLS.items():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tool.main(argv + [str(RATES_SCALE), "--device", DEVICE])
+        text = out.getvalue().splitlines()
+        print("\n".join(text), flush=True)
+        lines = [json.loads(line) for line in text[:-1]]
+        if rc != 0 or not lines or text[-1] != CARD["line"]:
+            raise AssertionError(f"{name}: exit {rc}, {len(lines)} lines, "
+                                 f"last {text[-1:]}")
+        for line in lines:
+            if (keys - set(line) or line["tool"] != name
+                    or not line["ms"] > 0 or line.get("ok") is False):
+                raise AssertionError(f"{name}: {line}")
+        print(f"[rates] {name}: {len(lines)} lines", flush=True)
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2222,7 +2283,7 @@ def _timed(name, fn, *args):
 PHASES = ("kernel", "kernel ranges", "kernel merge", "kernel sort tiles",
           "kernel stage", "probes", "sort tools", "mid", "headline", "sorts",
           "materialize", "partitioned", "streaming", "coprocess", "late",
-          "pipeline", "distributed", "surface")
+          "pipeline", "distributed", "surface", "rates")
 # phases that join the headline's 2^27 relations, which `headline` makes
 NEED_HEADLINE = ("sorts", "materialize", "partitioned", "streaming",
                  "coprocess")
@@ -2244,7 +2305,8 @@ def _partial(names) -> int:
              "kernel stage": phase_kernel_stage, "probes": phase_probes,
              "sort tools": phase_sort_tools, "mid": phase_mid,
              "late": phase_late, "pipeline": phase_pipeline,
-             "distributed": phase_distributed, "surface": phase_surface}
+             "distributed": phase_distributed, "surface": phase_surface,
+             "rates": phase_rates}
     with_big = {"sorts": phase_sorts, "materialize": phase_materialize,
                 "partitioned": phase_partitioned,
                 "streaming": phase_streaming, "coprocess": phase_coprocess}
@@ -2306,6 +2368,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     k1_surface, at_surface = _timed("surface", phase_surface, c5)
     kstats["banded_compare_sum"]["launches_surface"] = k1_surface
+    _timed("rates", phase_rates)
     for name in KERNELS:
         kstats[name]["launches_distributed"] = legs[name]
         kstats[name]["at_distributed"] = held[name]

@@ -8,11 +8,35 @@ BENCH_REPS calls. The result must equal the C++ host oracle, read from
 `data/oracle_agg_pkfk_s{scale}_z{skew}_seed12345_g{generator}.json` where
 that is checked in, else computed and cached there.
 
-Keys: metric (`join_throughput_{R}Mx{S}M[_zipf{z}]`), value (Mrows/s), unit,
-correct, aggregate, elapsed_s, phases, sort_impl, and device (the card's
-name and power limit as `nvidia-smi` gives them). `bench.py`'s shares of a
-speed-of-light model (vs_baseline, vs_sort_frontier, vs_scatter_sol,
-hbm_gbps) are left out: their rates are a TPU's.
+Keys: `bench.py`'s (metric, value in Mrows/s, unit, vs_baseline,
+vs_sort_frontier, vs_scatter_sol, sol_model, correct, aggregate,
+elapsed_s, phases, hbm_gbps, sort_impl, device: the card's name and power
+limit as `nvidia-smi` gives them), and sort_frontier_rows_s.
+
+The shares are the time of a speed-of-light model over the measured
+elapsed time, with the card's own rates (`utils/timing`): its data-sheet
+memory rate BW (`detect_hbm_gbps`) and its integer rate (`int_ops_per_s`),
+read after the timed calls:
+
+  sort SOL per side = 4 passes x 16 B/row / BW
+  probe SOL         = max(16 B/row x (|R| + |S|) / BW,
+                          256 ops x |S| / integer rate)
+  vs_baseline       = (sort SOL(R) + sort SOL(S) + probe SOL) / elapsed
+
+The sort's 4 passes of 16 B a row are `bench.py`'s bytes term, and what an
+LSD radix pair sort with 8-bit digits moves. `bench.py` also bounds each
+sort by a bitonic compare network (0.5 lg (lg + 1) stages x 6 ops a row),
+because a TPU has no scatter and sorts by comparing; a card scatters, and
+`torch.sort` is a radix sort there, so that term is dropped: with the
+card's integer rate it is 18.2 ms a side at 2^27, and the share would read
+above 1. The probe's 256 ops a row are 128 window slots at 2 ops each, the
+banded kernel's count. vs_sort_frontier is both sides at the sort rate
+measured in the same run (one `torch.sort` of 2^scale sort values + the
+payload gather, the engine's "lax" sort, best of 3 by CUDA events) plus the
+probe SOL. vs_scatter_sol is the reference's radix-hash-join bound, 40 B a
+row over BW: on a card that scatters it is a real bound. On the CPU there
+is no card to take rates from: the shares and the sort rate are null, and
+hbm_gbps is the CPU's 50.0.
 
 Env knobs: BENCH_SCALE (default 27), BENCH_SKEW (Zipf z, default 0),
 BENCH_REPS (default 3), TPUJOIN_SORT_IMPL ("lax", "merge" or "packed";
@@ -35,12 +59,25 @@ import torch
 from icde2019_gpu_join_tpu_torch import datagen
 from icde2019_gpu_join_tpu_torch.config import EngineConfig
 from icde2019_gpu_join_tpu_torch.models.joins import ClusteredJoin
+from icde2019_gpu_join_tpu_torch.ops.merge import torch_sort_pairs
 from icde2019_gpu_join_tpu_torch.relation import Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets
+from icde2019_gpu_join_tpu_torch.utils.timing import (best_ms, detect_hbm_gbps,
+                                                      int_ops_per_s)
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DATA_DIR = os.path.join(REPO, "data")
 SEED = 12345
+SORT_PASSES = 4
+SORT_BYTES_PER_ROW = 16
+PROBE_BYTES_PER_ROW = 16
+PROBE_OPS_PER_S_ROW = 256     # 128 window slots x 2 ops (compare, add)
+SCATTER_BYTES_PER_ROW = 40
+SHARES = ("vs_baseline", "vs_sort_frontier", "vs_scatter_sol")
+SOL_MODEL = ("sort 4 passes x 16 B/row / BW a side; probe max(16 B/row "
+             "x (|R|+|S|) / BW, 256 ops x |S| / int rate); frontier: both "
+             "sides at the measured sort rate + probe; scatter: 40 B/row / "
+             "BW; BW and int rate the card's")
 
 
 def card_line(device) -> str:
@@ -80,6 +117,53 @@ def oracle_expect_cached(rk, rp, sk, sp, scale: int, skew: float,
     return agg
 
 
+def sort_sol_s(n: int, hbm_gbps: float) -> float:
+    """One side's sort at its speed of light: SORT_PASSES passes of
+    SORT_BYTES_PER_ROW a row over the memory rate."""
+    return SORT_PASSES * SORT_BYTES_PER_ROW * n / (hbm_gbps * 1e9)
+
+
+def probe_sol_s(n_r: int, n_s: int, hbm_gbps: float,
+                int_ops: float) -> float:
+    """The banded probe at its speed of light: both sides read once, or
+    PROBE_OPS_PER_S_ROW operations an S row, whichever takes longer."""
+    return max(PROBE_BYTES_PER_ROW * (n_r + n_s) / (hbm_gbps * 1e9),
+               PROBE_OPS_PER_S_ROW * n_s / int_ops)
+
+
+def shares(n_r: int, n_s: int, elapsed: float, hbm_gbps: float,
+           int_ops: float, sort_rows_s: float) -> dict:
+    """`bench.py`'s three shares of the speed-of-light model (module
+    docstring), from the card's memory rate, integer rate and measured sort
+    rate."""
+    probe = probe_sol_s(n_r, n_s, hbm_gbps, int_ops)
+    t_sol = sort_sol_s(n_r, hbm_gbps) + sort_sol_s(n_s, hbm_gbps) + probe
+    t_frontier = (n_r + n_s) / sort_rows_s + probe
+    t_scatter = SCATTER_BYTES_PER_ROW * (n_r + n_s) / (hbm_gbps * 1e9)
+    return dict(zip(SHARES, (t_sol / elapsed, t_frontier / elapsed,
+                             t_scatter / elapsed)))
+
+
+def sort_frontier_rows_s(keys: torch.Tensor, pays: torch.Tensor) -> float:
+    """Rows a second of the engine's "lax" sort on the card: `torch.sort`
+    of the keys as sort values + the payload gather, best of 3 by CUDA
+    events."""
+    ms = best_ms(lambda: torch_sort_pairs(keys, pays), keys.device, reps=3)
+    return keys.shape[0] / ms * 1e3
+
+
+def card_rates(device, keys: torch.Tensor, pays: torch.Tensor) -> dict:
+    """The model's rates on `device`: its memory rate and, on a card, its
+    integer rate and the "lax" sort's rate on (keys, pays); those two are
+    None on the CPU."""
+    rates = {"hbm_gbps": detect_hbm_gbps(device), "int_ops": None,
+             "sort_rows_s": None}
+    if torch.device(device).type == "cuda":
+        rates["int_ops"] = int_ops_per_s(device)
+        rates["sort_rows_s"] = sort_frontier_rows_s(keys, pays)
+    return rates
+
+
 def run(scale: int = 27, skew: float = 0.0, reps: int = 3,
         sort_impl: str = "lax", device="cuda",
         cache_dir: Optional[str] = None) -> dict:
@@ -99,6 +183,10 @@ def run(scale: int = 27, skew: float = 0.0, reps: int = 3,
         res = engine.aggregate(r, s)   # returns a host int: synchronised
         elapsed = min(elapsed, time.perf_counter() - t0)
 
+    rates = card_rates(device, s.keys, s.payload)   # after the timed calls
+    share = dict.fromkeys(SHARES)
+    if rates["int_ops"] is not None:
+        share = shares(n_r, n_s, elapsed, **rates)
     expect = oracle_expect_cached(rk, rp, sk, sp, scale, skew,
                                   cache_dir=cache_dir)
     return {
@@ -106,10 +194,14 @@ def run(scale: int = 27, skew: float = 0.0, reps: int = 3,
                   + (f"_zipf{skew}" if skew else ""),
         "value": (n_r + n_s) / elapsed / 1e6,
         "unit": "Mrows/s",
+        **share,
+        "sol_model": SOL_MODEL,
         "correct": res.aggregate == expect,
         "aggregate": res.aggregate,
         "elapsed_s": elapsed,
         "phases": {p.name: p.seconds for p in res.timer.phases},
+        "hbm_gbps": rates["hbm_gbps"],
+        "sort_frontier_rows_s": rates["sort_rows_s"],
         "sort_impl": sort_impl,
         "device": card_line(device),
     }

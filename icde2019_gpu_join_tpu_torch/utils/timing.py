@@ -1,20 +1,96 @@
-"""Phase timing and throughput metrics (reference C21 analog).
+"""Phase timing, throughput metrics and the card's rates (reference C21
+analog).
 
 The reference reports per-phase MB/s as 2*(|R|+|S|)*4B / t
 (src/hash_join_clustered_probe.cu:937-940). A phase's clock stops only
 after the device has finished the phase's result: CUDA work is enqueued
 asynchronously, so the timer synchronises when the result lies on a card.
+Its report adds each phase's share of the device's memory rate
+(`roofline_frac`), as the JAX package's does.
+
+The card's rates live here and nowhere else: `detect_hbm_gbps` (the data
+sheet's memory rate, looked up by the card's name) and `int_ops_per_s` (SMs
+x 64 int32 lanes x the maximum SM clock). The bench's shares, the timer's
+roofline fractions and `chip_smoke.py`'s bounds all read them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+
+# Device memory rate (GB/s) by name, NVIDIA's data sheets; matched as a
+# case-insensitive substring of `torch.cuda.get_device_name`. "cpu" is the
+# JAX package's own figure for the host, kept so that both packages report
+# the same keys and values on the CPU.
+DEFAULT_HBM_GBPS = {
+    "H100 80GB HBM3": 3350.0,   # the SXM part's name as the driver gives it
+    "H100 SXM": 3350.0,
+    "H100 PCIe": 2000.0,
+    "H100 NVL": 3900.0,
+    "cpu": 50.0,
+}
+INT32_LANES_PER_SM = 64
+COPY_BYTES = 1 << 28        # the buffer an unknown card's copy rate is read on
+
+
+def datasheet_hbm_gbps(name: str) -> Optional[float]:
+    """The table's memory rate for a device name, None when it has none."""
+    for key, gbps in DEFAULT_HBM_GBPS.items():
+        if key.lower() in name.lower():
+            return gbps
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_gbps(index: int) -> float:
+    """Measured device-to-device copy rate of card `index` in GB/s (bytes
+    read plus bytes written), best of 5 after a warm-up; once per card."""
+    device = torch.device("cuda", index)
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    ms = best_ms(lambda: dst.copy_(src), device)
+    return 2 * COPY_BYTES / ms / 1e6
+
+
+def detect_hbm_gbps(device=None) -> float:
+    """Device memory rate in GB/s for `device` (default: the card).
+
+    The CPU: 50.0, as the JAX package reports it. A card the table names:
+    its data-sheet figure, a dictionary lookup and no device work, so that a
+    caller may ask inside a timed window. Any other card: its measured
+    device-to-device copy rate, taken once per card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        return DEFAULT_HBM_GBPS["cpu"]
+    index = torch.cuda.current_device() if device.index is None else device.index
+    gbps = datasheet_hbm_gbps(torch.cuda.get_device_name(index))
+    return gbps if gbps is not None else _copy_gbps(index)
+
+
+def int_ops_per_s(device="cuda") -> float:
+    """The card's int32 operation rate: SMs x INT32_LANES_PER_SM x the
+    maximum SM clock that `nvidia-smi --query-gpu=clocks.max.sm` reports
+    (its line of the card's index: cards numbered as `nvidia-smi` numbers
+    them)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"int_ops_per_s needs a card, not {device}")
+    index = torch.cuda.current_device() if device.index is None else device.index
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(clocks[index]) * 1e6
 
 
 @dataclass
@@ -38,9 +114,12 @@ def cuda_device_of(result) -> Optional[torch.device]:
 @dataclass
 class PhaseTimer:
     """Collects named phases; a phase that sets `out["result"]` to CUDA
-    tensors is closed by synchronising the card of the first of them."""
+    tensors is closed by synchronising the card of the first of them, and
+    that card's memory rate is the report's `hbm_gbps` (the CPU's when no
+    phase synchronised one)."""
 
     phases: List[Phase] = field(default_factory=list)
+    device: Optional[torch.device] = None
 
     @contextlib.contextmanager
     def phase(self, name: str, bytes_moved: int = 0, rows: int = 0):
@@ -53,6 +132,7 @@ class PhaseTimer:
             dev = cuda_device_of(out.get("result"))
             if dev is not None:
                 torch.cuda.synchronize(dev)
+                self.device = dev
             t1 = time.perf_counter()
             self.phases.append(Phase(name, t1 - t0, bytes_moved, rows))
 
@@ -63,7 +143,8 @@ class PhaseTimer:
         return sum(p.seconds for p in self.phases)
 
     def report(self, extra: Optional[Dict] = None) -> Dict:
-        out = {"phases": {}}
+        hbm_gbps = detect_hbm_gbps(self.device or "cpu")
+        out = {"phases": {}, "hbm_gbps": hbm_gbps}
         for p in self.phases:
             d = out["phases"].setdefault(
                 p.name, {"seconds": 0.0, "bytes": 0, "rows": 0}
@@ -75,6 +156,7 @@ class PhaseTimer:
             if d["seconds"] > 0:
                 d["gbps"] = d["bytes"] / d["seconds"] / 1e9
                 d["mrows_per_s"] = d["rows"] / d["seconds"] / 1e6
+                d["roofline_frac"] = d["gbps"] / hbm_gbps
         if extra:
             out.update(extra)
         return out

@@ -3,8 +3,10 @@ bench (benchmarks/bench.py), `run_configs` configs 1-6 through their
 functions, `precache_oracles`, and `entry`. The oracle caches and the .bin
 datasets go to `tmp_path`. `_fingerprint` and `_cache_path` are held
 against those of the repository's `benchmarks/run_configs.py`, loaded by
-path as the repository's precache script loads it."""
+path as the repository's precache script loads it; the bench's keys against
+those of the repository's `bench.py` line."""
 
+import ast
 import importlib.util
 import os
 
@@ -20,8 +22,26 @@ from icde2019_gpu_join_tpu_torch.config import EngineConfig
 from icde2019_gpu_join_tpu_torch.models import coprocess, joins
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KEYS = {"metric", "value", "unit", "correct", "aggregate", "elapsed_s",
-        "phases", "sort_impl", "device"}
+SHARES = bench.SHARES
+# the H100 SXM's figures: the data sheet's memory rate, 132 SMs x 64 int32
+# lanes x 1980 MHz, and `torch.sort` + gather of 2^27 pairs in 11.918 ms
+H100 = {"hbm_gbps": 3350.0, "int_ops": 132 * 64 * 1980e6,
+        "sort_rows_s": (1 << 27) / 11.918e-3}
+
+
+def _jax_bench_keys() -> set:
+    """The keys of the dict the repository's `bench.py` prints."""
+    with open(os.path.join(REPO, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    (line,) = [node.args[0] for node in ast.walk(tree)
+               if isinstance(node, ast.Call)
+               and getattr(node.func, "attr", None) == "dumps"
+               and isinstance(node.args[0], ast.Dict)]
+    return {key.value for key in line.keys}
+
+
+# `bench.py`'s keys and the sort rate its frontier is measured at
+KEYS = _jax_bench_keys() | {"sort_frontier_rows_s"}
 
 
 def _load_jax_run_configs():
@@ -42,7 +62,10 @@ def data(tmp_path, monkeypatch):
     (0.0, "join_throughput_0Mx0M"), (1.05, "join_throughput_0Mx0M_zipf1.05")])
 def test_bench_line_at_scale_12(data, skew, metric):
     line = bench.run(scale=12, skew=skew, reps=2, device="cpu", cache_dir=data)
-    assert set(line) == KEYS            # no vs_* share, no hbm_gbps
+    assert set(line) == KEYS and set(SHARES) <= KEYS
+    # no card to take rates from: no share, the CPU's memory rate
+    assert all(line[key] is None for key in SHARES + ("sort_frontier_rows_s",))
+    assert line["hbm_gbps"] == 50.0 and line["sol_model"] == bench.SOL_MODEL
     assert line["correct"] is True and line["metric"] == metric
     assert line["unit"] == "Mrows/s" and line["value"] > 0
     assert line["sort_impl"] == "lax" and line["device"] == "cpu"
@@ -50,6 +73,57 @@ def test_bench_line_at_scale_12(data, skew, metric):
     cached = os.path.join(
         data, f"oracle_agg_pkfk_s12_z{skew}_seed12345_gnative.json")
     assert os.path.exists(cached)
+
+
+@pytest.mark.parametrize("elapsed,want", [
+    (35.6e-3, (0.2018, 0.7273, 0.0900)), (38.1e-3, (0.1885, 0.6795, 0.0841))])
+def test_bench_shares_at_2_27_on_the_h100(elapsed, want):
+    """The model on the H100 at 2^27: each side's sort 2.564 ms of memory
+    passes, the probe 2.054 ms of kernel-1 operations, the frontier 23.84 ms
+    of `torch.sort` + gather, the scatter bound 3.205 ms. A compare-network
+    term for the sorts would put vs_baseline above 1."""
+    n = 1 << 27
+    assert bench.sort_sol_s(n, H100["hbm_gbps"]) == pytest.approx(2.5642e-3,
+                                                                  rel=1e-4)
+    assert bench.probe_sol_s(n, n, H100["hbm_gbps"], H100["int_ops"]) == \
+        pytest.approx(2.0541e-3, rel=1e-4)
+    got = bench.shares(n, n, elapsed, H100["hbm_gbps"], H100["int_ops"],
+                       H100["sort_rows_s"])
+    assert [got[key] for key in SHARES] == pytest.approx(want, abs=1e-4)
+    assert all(0 < got[key] <= 1 for key in SHARES)
+
+
+def test_bench_reads_the_cards_rates_after_the_timed_calls(data, monkeypatch):
+    """The line's shares come from `card_rates`, read once after the timed
+    calls (here posing as the H100's)."""
+    events = []
+    real_agg = bench.ClusteredJoin.aggregate
+
+    def agg(self, r, s):
+        events.append("aggregate")
+        return real_agg(self, r, s)
+
+    def rates(device, keys, pays):
+        events.append("rates")
+        assert device == "cpu" and keys.shape[0] == 1 << 12
+        return {"hbm_gbps": H100["hbm_gbps"], "int_ops": H100["int_ops"],
+                "sort_rows_s": H100["sort_rows_s"]}
+
+    monkeypatch.setattr(bench.ClusteredJoin, "aggregate", agg)
+    monkeypatch.setattr(bench, "card_rates", rates)
+    line = bench.run(scale=12, reps=2, device="cpu", cache_dir=data)
+    assert events == ["aggregate"] * 3 + ["rates"]
+    assert line["correct"] is True and line["hbm_gbps"] == 3350.0
+    assert line["sort_frontier_rows_s"] == H100["sort_rows_s"]
+    want = bench.shares(1 << 12, 1 << 12, line["elapsed_s"], H100["hbm_gbps"],
+                        H100["int_ops"], H100["sort_rows_s"])
+    assert {key: line[key] for key in SHARES} == want
+
+
+def test_card_rates_on_the_cpu():
+    keys = torch.zeros(8, dtype=torch.int32)
+    assert bench.card_rates("cpu", keys, keys) == {
+        "hbm_gbps": 50.0, "int_ops": None, "sort_rows_s": None}
 
 
 def test_bench_hands_the_sort_to_the_engine(data, monkeypatch):

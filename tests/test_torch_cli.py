@@ -95,14 +95,27 @@ def test_materialize_line_equals_jax(tmp_path, monkeypatch):
     assert _result(got) == _result(want)
 
 
+def _keys(report: dict) -> dict:
+    """The report's key structure: its keys, and each phase's."""
+    return {"top": sorted(report),
+            "phases": {name: sorted(d) for name, d in report["phases"].items()}}
+
+
 def test_json_report(tmp_path, monkeypatch):
-    lines = _run(tcli.main, ["-b", "7", "--json"] + SIZES, tmp_path,
-                 monkeypatch, device="cpu")
+    argv = ["-b", "7", "--json"] + SIZES
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    lines = _run(tcli.main, argv, tmp_path / "port", monkeypatch, device="cpu")
     rep = json.loads(lines[-1])
     assert f"{rep['result']} results" == _result(lines)
     assert rep["elapsed_s"] > 0 and rep["phases"]["join"]["seconds"] > 0
     assert [line.split(" is ")[0] for line in lines[2:5]] == [
         "Partition throughput", "Join throughput", "Total throughput"]
+    want = json.loads(_run(jcli.main, argv, tmp_path / "jax", monkeypatch)[-1])
+    assert _keys(rep) == _keys(want)
+    assert rep["hbm_gbps"] == want["hbm_gbps"] == 50.0
+    for d in rep["phases"].values():
+        assert d["roofline_frac"] == pytest.approx(d["gbps"] / 50.0)
 
 
 def test_oversized_probe_side_streams_from_host_memory(tmp_path, monkeypatch):
