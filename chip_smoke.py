@@ -14,9 +14,13 @@ run of all phases can pass. The phases:
   build      the CUDA kernel library (nvcc, sm_90a) and the C++ host library,
              side by side;
   kernel     each of the first five kernels against its plain version on the card,
-             exact int32 equality: the four banded kernels at small shapes
-             (W > 1, full-range payloads, empty windows) and at the shape
-             their path gives them, with both times at that shape; the
+             exact int32 equality: the four banded kernels, and the windowed
+             entry points of kernels 1 and 3, at small shapes (W > 1,
+             full-range payloads, empty windows) and at the shape their path
+             gives them, with both times at that shape; the windowed ones
+             also on edge windows (`WINDOW_EDGE_SHAPES` at rounds 1 and 3:
+             empty and clamped windows, S and R pad rows, W of 1, 2 and 6,
+             an empty round); the
              interval select (kernel 4) also at widths of 1, 257, 333 and 512
              columns on disjoint intervals and on overlapping, inverted and
              INT32_MIN / INT32_MAX ones; the
@@ -71,7 +75,8 @@ run of all phases can pass. The phases:
              the checked-in oracle value) and 2^22 x 2^22 Zipf z=1.05
              (against the C++ oracle);
   headline   the aggregate at 2^27 x 2^27 uniform PK-FK with payloads of 1,
-             the `bench.py` workload: best of 3 after a warm-up;
+             the `bench.py` workload: best of 3 after a warm-up; the windowed
+             kernel 1 must launch and the chunk entry point not at all;
   sorts      `EngineConfig.sort_impl`: the headline relations with every key
              plus 1 on both sides (the same join and oracle value, no sort
              value a masking sentinel) under "merge" and "packed", best of 3
@@ -135,12 +140,13 @@ run of all phases can pass. The phases:
              materializing join as a multiset against the numpy oracle; and
              the port's `dryrun_multichip(8)` (config 5's second leg). Every
              leg overflow 0 and equal to its oracle, best of 3 after a
-             warm-up, kernel 1 launched on every aggregate leg and kernels 3,
-             4 and 2 on the materialize leg. The warm-up calls record the
-             (CH, W) each banded kernel gets; each of kernels 1-4 is then
-             held against its plain version at every one of them, with both
-             times at the largest and the smallest CH (a tail chunk) of
-             each width W.
+             warm-up, kernel 1 (windowed) launched on every aggregate leg
+             and kernels 3 (windowed), 4 and 2 on the materialize leg. The
+             warm-up calls record the (CH, W) each banded kernel gets; each
+             is then held against its plain version at every one of them
+             (the chunk entry points of kernels 1 and 3 at their windowed
+             twins' shapes), with both times at the largest and the
+             smallest CH (a tail chunk) of each width W.
              (Where the time of these legs goes: the port's
              `benchmarks/dist_bench.py`.)
   surface    the user surface, on the .bin files the earlier phases wrote:
@@ -155,15 +161,17 @@ run of all phases can pass. The phases:
              configs 1 and 2 at their default sizes, every line correct
              (config 5 at its default size is the distributed phase's
              1-rank legs and dryrun); each call records the (CH, W) its
-             banded kernels get, and kernels 1-4 are held against their
-             plain versions at those shapes, as in the distributed phase;
+             banded kernels get, and the banded kernels are held against
+             their plain versions at those shapes, as in the distributed
+             phase;
              both group-by paths at 2^24 rows and 64 groups, vals in
              [0, 2^13), against `oracle.groupby_aggregate`, with their times;
              the sort path once more under `profiling.maybe_trace` and
              `annotate`, whose Chrome trace must hold the span and the
              card's kernels.
-             Kernel 1 must launch on the CLI's join, the bench and each
-             configuration (kernel 3 on the materializing CLI call);
+             Kernel 1 (windowed) must launch on the CLI's join, the bench and
+             each configuration (kernel 3, windowed, on the materializing
+             CLI call);
   rates      the three rate tools (no kernel of their own) at 2^24 rows
              through their entry points, `microbench`, `radix_proto_bench`
              and `sortgeom_bench all`: exit 0, every line's keys, every
@@ -179,17 +187,19 @@ plain version's at the path's shape, and its bound there, the larger of the
 bytes it must move (each input read once, each output written once) over
 the card's data-sheet memory rate (`utils/timing.detect_hbm_gbps`: 3.35
 TB/s on the H100 SXM) and the integer operations its function needs over
-the card's integer rate (`utils/timing.int_ops_per_s`: SMs x 64 int32
-lanes x the maximum SM clock `nvidia-smi` reports; `KERNEL_OPS` says what
-is counted). `library_ms` is the one PyTorch call
+the card's integer rate (`utils/timing.int_ops_per_s`: SMs x 128 integer
+operations a clock, the issue rate, x the maximum SM clock `nvidia-smi`
+reports; `KERNEL_OPS` says what is counted). `library_ms` is the one PyTorch call
 that computes the tile sort on distinct keys (`torch.sort` along dim 1 +
 gather); no single call computes any of the other functions, so it is null
 there; the whole merge sort has `torch.sort` + gather beside it in the kernel
-merge phase. Kernel 1's entry also carries its launches in the streamed
-and the co-processed call (`launches_streaming`, `launches_coprocess`) and
-on each call of the surface phase (`launches_surface`);
-kernels 1-4 carry their launches on each leg of the distributed phase
-(`launches_distributed`), and each of kernels 1-4 its holds at the shapes
+merge phase. The windowed kernel 1's entry also carries its launches in the
+streamed and the co-processed call (`launches_streaming`,
+`launches_coprocess`) and on each call of the surface phase
+(`launches_surface`); the chunk entry points of kernels 1 and 3 lie on no
+path (their launches are the aggregate's and the ring's: 0). The banded
+kernels carry their launches on each leg of the distributed phase
+(`launches_distributed`), and each its holds at the shapes
 the distributed legs and the surface calls gave it (`at_distributed`,
 `at_surface`: every (CH, W) held, `held_at`, and the errors and times at
 the largest and the smallest chunk of each width, `timed`; their errors
@@ -225,6 +235,7 @@ from icde2019_gpu_join_tpu_torch.benchmarks import (bench, construct_probes,
                                                     merge_sort_bench,
                                                     microbench,
                                                     overlap_bench,
+                                                    probe_bench,
                                                     radix_proto_bench,
                                                     run_configs,
                                                     sortgeom_bench)
@@ -275,6 +286,10 @@ ROUTES = {
     "banded_compare_per_s": (BANDED_SOURCE, f"{BANDED_PALLAS}:93"),
     "banded_compare_first": (BANDED_SOURCE, f"{BANDED_PALLAS}:138"),
     "banded_interval_select": (BANDED_SOURCE, f"{BANDED_PALLAS}:185"),
+    # kernels 1 and 3 on the block views, the gathers of
+    # icde2019_gpu_join_tpu/ops/band_join.py folded in
+    "banded_window_sum": (BANDED_SOURCE, f"{BANDED_PALLAS}:44"),
+    "banded_window_first": (BANDED_SOURCE, f"{BANDED_PALLAS}:138"),
     "probe_aggregate_ranges": (
         "icde2019_gpu_join_tpu_torch/csrc/probe_ranges.cu",
         "icde2019_gpu_join_tpu/ops/probe_pallas.py:76"),
@@ -288,7 +303,9 @@ ROUTES = {
 }
 # The integer operations each kernel's function needs per unit of work, for
 # its bound: per compared (S row, R column) pair a compare and one
-# predicated add (kernels 1 and 5), two adds (2), an add and a min (3); for
+# predicated add (kernels 1 and 5), two adds (2), an add and a min (3),
+# both entry points of kernels 1 and 3 alike (a windowed call compares only
+# the columns before hi: masked ones need no compare); for
 # the interval select (4) the least any design needs, a subtraction and an
 # unsigned compare a pair ((uint32)(pos - lo) < len), since payloads are
 # touched per hit and not per pair; per compare-exchange of the merge
@@ -296,6 +313,7 @@ ROUTES = {
 # selects.
 KERNEL_OPS = {"banded_compare_sum": 2, "banded_compare_per_s": 3,
               "banded_compare_first": 3, "banded_interval_select": 2,
+              "banded_window_sum": 2, "banded_window_first": 3,
               "probe_aggregate_ranges": 2, "merge_levels_vmem": 5,
               "merge_level_hbm": 5, "sort_tiles": 5, "stage_reps": 5,
               "construct_probes": 5}
@@ -362,12 +380,21 @@ COUNTED = (band_compare, probe_ranges, merge, experimental_sort,
            merge_sort_bench, construct_probes)
 
 
+# device clock cycles the card sleeps before a timed run, while the host
+# queues its calls: 10 ms at 2 GHz
+HOLD_CYCLES = 20_000_000
+
+
 def _time_ms(fn, reps: int) -> float:
-    """Mean device time of one call, by CUDA events over `reps` calls."""
+    """Mean device time of one call, by CUDA events over `reps` calls. The
+    card first sleeps HOLD_CYCLES while the host queues them, so that a call
+    shorter than its launch's host work is timed on the card, not by the
+    host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -492,18 +519,107 @@ def _interval_edge_args(gen, ch, wb):
             _full(gen, (ch, wb)))
 
 
+def _window_args(gen, ch: int, wb: int, edge_round=None):
+    """A windowed call's arguments: CH distinct S block ids, permuted, out of
+    about CH + CH/8 blocks, and about CH/2 + W R blocks; keys from a narrow
+    range (dense matches), full-range payloads, S pad rows and R pad rows
+    (the sentinel). With `edge_round` None, as on the path: round 0, every
+    window W whole blocks, placed along R by the S block's position. Else
+    that round over windows of 0 to 2W + 1 blocks, some empty (lo == hi),
+    and one at R's last block, whose columns past it are clamped. The
+    accumulators start from values that are not the identity, so that the
+    kernels' += and min show."""
+    w = wb // band_compare.LANES
+    nsb, nrb = ch + ch // 8 + 1, ch // 2 + w + 1
+    pad = band_join._R_PAD_SV
+    s_svb = _ints(gen, 0, 16, (nsb, band_compare.LANES))
+    r_svb = _ints(gen, 0, 16, (nrb, band_compare.LANES))
+    s_svb[-1, 64:] = pad
+    r_svb[-1, 96:] = pad
+    ids = torch.randperm(nsb, generator=gen, device=DEVICE)[:ch]
+    if edge_round is None:
+        lo = (torch.arange(nsb, device=DEVICE) * (nrb - w) // nsb).to(
+            torch.int32)
+        hi, r = lo + w, 0
+    else:
+        lo = _ints(gen, 0, nrb, (nsb,))
+        hi = torch.clamp(lo + _ints(gen, 0, 2 * w + 2, (nsb,)), max=nrb)
+        hi = hi.to(torch.int32)
+        r = edge_round
+        if ch >= 2:
+            lo[ids[0]] = hi[ids[0]]            # an empty window
+            lo[ids[1]], hi[ids[1]] = nrb - 1, nrb   # clamped past R's end
+    s_side = (s_svb, _full(gen, s_svb.shape))
+    return (*s_side, r_svb, _full(gen, r_svb.shape), ids, lo, hi, r, w)
+
+
+def _window_sum_args(gen, ch, wb, edge_round=None):
+    return (*_window_args(gen, ch, wb, edge_round), _full(gen, (1,)))
+
+
+def _window_first_args(gen, ch, wb, edge_round=None):
+    s_svb, _, r_svb, _, ids, lo, hi, r, w = _window_args(gen, ch, wb,
+                                                         edge_round)
+    h = _ints(gen, 0, 5, s_svb.shape)
+    fm = torch.where(_ints(gen, 0, 2, s_svb.shape) > 0, band_compare.INT32_MAX,
+                     _ints(gen, 0, 1 << 20, s_svb.shape)).to(torch.int32)
+    return s_svb, r_svb, ids, lo, hi, r, w, h, fm
+
+
 BC = band_compare
-# the banded kernels, name: (wrapper, plain version, inputs)
+# the banded kernels, name: (wrapper, plain version, inputs, how many of the
+# last arguments are outputs it updates in place: 0 where it returns them)
 KERNELS = {
     "banded_compare_sum": (BC.banded_compare_sum, BC.banded_compare_sum_ref,
-                           _sum_args),
+                           _sum_args, 0),
     "banded_compare_per_s": (BC.banded_compare_per_s,
-                             BC.banded_compare_per_s_ref, _per_s_args),
+                             BC.banded_compare_per_s_ref, _per_s_args, 0),
     "banded_compare_first": (BC.banded_compare_first,
-                             BC.banded_compare_first_ref, _first_args),
+                             BC.banded_compare_first_ref, _first_args, 0),
     "banded_interval_select": (BC.banded_interval_select,
-                               BC.banded_interval_select_ref, _interval_args),
+                               BC.banded_interval_select_ref, _interval_args,
+                               0),
+    "banded_window_sum": (BC.banded_window_sum, BC.banded_window_sum_ref,
+                          _window_sum_args, 1),
+    "banded_window_first": (BC.banded_window_first,
+                            BC.banded_window_first_ref, _window_first_args, 2),
 }
+# the windowed kernels' edge windows, (CH, W), each held at rounds 1 and 3;
+# CH 0 is an empty round
+WINDOW_EDGE_SHAPES = [(0, 2), (5, 1), (77, 2), (300, 6), (2048, 6)]
+# the chunk entry point whose body each windowed kernel shares
+TWIN = {"banded_window_sum": "banded_compare_sum",
+        "banded_window_first": "banded_compare_first"}
+
+
+def _call(name: str, fn, args):
+    """fn (kernel `name`'s wrapper or plain version) on args; its outputs,
+    which an in-place kernel updates in copies of the last arguments."""
+    n_out = KERNELS[name][3]
+    if not n_out:
+        return fn(*args)
+    outs = tuple(x.clone() for x in args[-n_out:])
+    fn(*args[:-n_out], *outs)
+    return outs
+
+
+def _work(name: str, args, out) -> tuple:
+    """(bytes moved, compared pairs) of one call: each input read once,
+    each output written once; a windowed call reads its S rows, ids, lo, hi
+    and the R rows before hi, updates its outputs, and compares those rows
+    only."""
+    lanes = band_compare.LANES
+    if not KERNELS[name][3]:
+        return _nbytes(*args, *out), args[0].numel() * args[-1].shape[1]
+    s_rows = 2 if name == "banded_window_sum" else 1
+    ids, lo, hi, r, w = args[4:9] if s_rows == 2 else args[2:7]
+    base = lo[ids].long() + r * w
+    blocks = int(torch.clamp(hi[ids].long() - base, 0, w).sum())
+    rows = ids.numel() * s_rows + blocks * s_rows
+    # the outputs are read and written: acc, or the ids' rows of h and fm
+    outs = 2 * (4 if s_rows == 2 else 2 * ids.numel() * lanes * 4)
+    return (rows * lanes * 4 + ids.numel() * (8 + 4 + 4) + outs,
+            blocks * lanes * lanes)
 
 
 def _main_shapes() -> dict:
@@ -516,7 +632,9 @@ def _main_shapes() -> dict:
     return {"banded_compare_sum": [chunk],
             "banded_compare_per_s": [chunk, (slots, 6)],
             "banded_compare_first": [chunk],
-            "banded_interval_select": [(slots, 4)]}
+            "banded_interval_select": [(slots, 4)],
+            "banded_window_sum": [chunk],
+            "banded_window_first": [chunk]}
 
 
 def _max_err(got, want) -> int:
@@ -538,7 +656,8 @@ def phase_report() -> str:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[report] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind} count {torch.cuda.device_count()}; {sms} SMs x "
-          f"{timing.INT32_LANES_PER_SM} int32 lanes x the max SM clock = "
+          f"{timing.INT32_OPS_PER_SM_CLOCK} integer operations a clock x "
+          f"the max SM clock = "
           f"{CARD['int_ops_per_s']:.3e} integer operations/s; memory "
           f"{CARD['hbm_bytes_per_s']:.3e} B/s")
     print(smi)
@@ -566,32 +685,34 @@ def phase_build():
           f"host {t_host:.2f}s ({_build.HOST_LIB}), in parallel")
 
 
-def _hold(name: str, shapes, gen) -> int:
+def _hold(name: str, shapes, gen, **kw) -> int:
     """Kernel `name` against its plain version at each (CH, W) of `shapes`,
-    on fresh inputs; raises on a difference, else returns 0 (the max abs
-    err)."""
-    wrapper, plain, make = KERNELS[name]
+    on fresh inputs (`kw` to the inputs' maker); raises on a difference,
+    else returns 0 (the max abs err)."""
+    wrapper, plain, make, _ = KERNELS[name]
     for ch, w in shapes:
-        args = make(gen, ch, w * band_compare.LANES)
-        err = _max_err(wrapper(*args), plain(*args))
+        args = make(gen, ch, w * band_compare.LANES, **kw)
+        err = _max_err(_call(name, wrapper, args), _call(name, plain, args))
         torch.cuda.synchronize()
         if err:
             raise AssertionError(f"{name}: kernel != plain at CH={ch} W={w}"
-                                 f" (max abs err {err})")
+                                 f" {kw} (max abs err {err})")
     return 0
 
 
 def _time_at(name: str, ch: int, w: int, gen) -> dict:
     """Kernel `name`'s and its plain version's time at (CH, W), and its
-    bound there."""
-    wrapper, plain, make = KERNELS[name]
+    bound there. An in-place kernel accumulates into its arguments while
+    it is timed."""
+    wrapper, plain, make, _ = KERNELS[name]
     args = make(gen, ch, w * band_compare.LANES)
     ms = _time_ms(lambda: wrapper(*args), 20)
     plain_ms = _time_ms(lambda: plain(*args), 3)
-    out = wrapper(*args)
-    return {"ms": ms, "plain_ms": plain_ms, **_bound(
-        _nbytes(*args, *(out if isinstance(out, tuple) else (out,))),
-        ch * band_compare.LANES * w * band_compare.LANES * KERNEL_OPS[name])}
+    out = _call(name, wrapper, args)
+    nbytes, pairs = _work(name, args,
+                          out if isinstance(out, tuple) else (out,))
+    return {"ms": ms, "plain_ms": plain_ms,
+            **_bound(nbytes, pairs * KERNEL_OPS[name])}
 
 
 def phase_kernel() -> dict:
@@ -609,6 +730,13 @@ def phase_kernel() -> dict:
               f"{SMALL_SHAPES + main}; at {main[0]}: kernel {st['ms']:.4f} ms, "
               f"plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
               f"by {st['bound_by']}")
+    # the windowed kernels on edge windows: rounds past 0, empty and clamped
+    # windows, W of 1, 2 and 6, an empty round
+    for name in TWIN:
+        for edge_round in (1, 3):
+            _hold(name, WINDOW_EDGE_SHAPES, gen, edge_round=edge_round)
+        print(f"[kernel] {name}: equal to plain on edge windows at (CH, W) in "
+              f"{WINDOW_EDGE_SHAPES}, rounds 1 and 3")
     # the interval select at widths that are no multiple of its staging tile
     # nor even, on the engine's kind of intervals and on the edge cases
     hits = 0
@@ -1300,7 +1428,10 @@ def phase_headline():
     torch.cuda.reset_peak_memory_stats()
 
     res, launches = _launched(lambda: engine.aggregate(r, s))
-    _require(launches, "headline", "banded_compare_sum")
+    _require(launches, "headline", "banded_window_sum")
+    if launches["banded_compare_sum"]:
+        raise AssertionError(f"headline: the chunk-array kernel 1 launched "
+                             f"{launches['banded_compare_sum']} times")
     if res.aggregate != want:
         raise AssertionError(f"headline: {res.aggregate} != oracle {want}")
     best, agg = _best_s(lambda: engine.aggregate(r, s).aggregate)
@@ -1357,7 +1488,7 @@ def phase_sorts(big) -> dict:
             # levels each
             _expect_cascade(launches, "2^27 merge", 2, 26, 2)
             head, routes = launches, dict(merge.ROUTES)
-        _require(launches, f"2^27 {impl}", "banded_compare_sum")
+        _require(launches, f"2^27 {impl}", "banded_window_sum")
         best, agg = _best_s(lambda: engine.aggregate(r, s).aggregate)
         peak = torch.cuda.max_memory_allocated()
         if res.aggregate != want or agg != want:
@@ -1456,7 +1587,7 @@ def phase_materialize(big):
     rp, sp = _key_payloads(rk, sk)
     r, s = _relations(rk, rp, sk, sp)
     res, fast = _launched(lambda: engine.materialize(r, s, capacity=RING))
-    _require(fast, "materialize (a), fast path", "banded_compare_first",
+    _require(fast, "materialize (a), fast path", "banded_window_first",
              "banded_interval_select", "banded_compare_per_s")
     t_fast, res = _best_s(lambda: engine.materialize(r, s, capacity=RING))
     want = oracle.join_materialize(rk, rp, sk, sp)
@@ -1475,7 +1606,7 @@ def phase_materialize(big):
     r, s = (Relation(k, p) for k, p in
             zip((r_keys, s_keys), _key_payloads(r_keys, s_keys)))
     res, ring = _launched(lambda: engine.materialize(r, s, capacity=RING))
-    _require(ring, "materialize (b), slot path", "banded_compare_first")
+    _require(ring, "materialize (b), slot path", "banded_window_first")
     if ring["banded_interval_select"]:
         raise AssertionError("ring: the fast path ran on a wrapped ring")
     t_ring, res = _best_s(lambda: engine.materialize(r, s, capacity=RING))
@@ -1576,7 +1707,7 @@ def _partitioned_zipf(lines: list):
         raise AssertionError(f"pallas zipf 1.05: {got} != C++ oracle {want}")
     ht, launches = _launched(lambda: int(perfect_hash.global_ht_join_aggregate(
         zs.keys, zs.payload, zr.keys, zr.payload)))
-    _require(launches, "global_ht overflow fallback", "banded_compare_sum")
+    _require(launches, "global_ht overflow fallback", "banded_window_sum")
     want = datagen.oracle_join_aggregate(zk_s, zp_s, zk_r, zp_r)
     n_ov = _overflow_rows(zs)
     if ht != want or n_ov == 0:
@@ -1660,7 +1791,7 @@ def _regime_call(r: Relation, s: Relation, cfg: EngineConfig, regime: str,
     t0 = time.perf_counter()
     res, launches = _launched(call)
     first = time.perf_counter() - t0
-    _require(launches, regime, "banded_compare_sum")
+    _require(launches, regime, "banded_window_sum")
     copies = dict(placement.COPIES)
     if copies["pageable"] or not copies["pinned"]:
         raise AssertionError(f"{regime}: uploads not all from pinned host "
@@ -1688,7 +1819,7 @@ def _regime_line(out: dict) -> str:
     return (f"first call {out['first_s'] * 1e3:.3f} ms, best of {REPS} "
             f"{out['best_s'] * 1e3:.3f} ms ({out['phases']}), "
             f"{out['copies']['pinned']} pinned uploads on the copy stream, "
-            f"kernel 1 launches {out['launches']['banded_compare_sum']}, peak "
+            f"kernel 1 launches {out['launches']['banded_window_sum']}, peak "
             f"device memory {out['peak'] / 2**30:.2f} GiB")
 
 
@@ -1723,7 +1854,7 @@ def phase_streaming(big) -> int:
         if out["copies"]["pinned"] != 2 * nseg:
             raise AssertionError(f"streaming: {out['copies']} uploads for "
                                  f"{nseg} segments")
-        first = first or out["launches"]["banded_compare_sum"]
+        first = first or out["launches"]["banded_window_sum"]
         lines.append(f"segments of {seg} rows ({nseg}) = {want} ({weight} x "
                      f"oracle); " + _regime_line(out))
     leg = overlap_bench.streaming_leg(rk, np.ones(n, np.int32), s_keys, s_pay,
@@ -1781,7 +1912,7 @@ def phase_coprocess(big) -> int:
     print(f"[coprocess] {CARD['line']}; 2^{MID_SCALE - 2} zipf1.05, "
           f"full-range payloads, resident limit {zcfg.resident_limit_rows} = "
           f"{zwant} (C++ oracle); " + _regime_line(zout))
-    return out["launches"]["banded_compare_sum"]
+    return out["launches"]["banded_window_sum"]
 
 
 def phase_late():
@@ -1895,10 +2026,16 @@ def _expect_agg(what: str, want: int):
     return check
 
 
-# the wrappers band_join calls, and which of each one's arguments holds its
-# windows ([CH, W*128])
-WINDOW_ARG = {"banded_compare_sum": 2, "banded_compare_per_s": 1,
-              "banded_compare_first": 1, "banded_interval_select": 1}
+# the wrappers band_join calls, and the (CH, W) of a call from its
+# arguments: a chunk kernel's window array [CH, W*128]; a windowed kernel's
+# ids [CH] and w
+WINDOW_ARG = {
+    "banded_compare_per_s": lambda a: (a[1].shape[0],
+                                       a[1].shape[1] // band_compare.LANES),
+    "banded_interval_select": lambda a: (a[1].shape[0],
+                                         a[1].shape[1] // band_compare.LANES),
+    **{name: probe_bench.SHAPE_OF[name] for name in TWIN},
+}
 
 
 @contextlib.contextmanager
@@ -1910,8 +2047,7 @@ def _shapes_seen(seen: dict):
 
     def recorder(name):
         def call(*args):
-            ch, width = args[WINDOW_ARG[name]].shape
-            seen.setdefault(name, set()).add((ch, width // band_compare.LANES))
+            seen.setdefault(name, set()).add(WINDOW_ARG[name](args))
             return real[name](*args)
         return call
 
@@ -1946,7 +2082,7 @@ def _nccl_legs(report: list, counts: dict, seen: dict):
     one-card code, which makes the data and the oracles and judges each
     line; each leg goes through `_dist_leg`, its warm-up and timed results
     required to agree. NCCL's init failing fails the phase."""
-    k1 = ("banded_compare_sum",)
+    k1 = ("banded_window_sum",)
 
     def run(tag, fn):
         first = []
@@ -1990,7 +2126,7 @@ def _thread_legs(report: list, counts: dict, seen: dict, inputs, wants,
                              for a in (rk, rp, sk, sp, hot))
     mesh = make_mesh(DIST_RANKS, device=DEVICE)
     mesh2 = make_mesh_2d(2, DIST_RANKS // 2, device=DEVICE)
-    k1 = ("banded_compare_sum",)
+    k1 = ("banded_window_sum",)
     tag = f"{DIST_RANKS} threads"
 
     _dist_leg(f"{tag} segmented", lambda: (
@@ -2043,7 +2179,7 @@ def _thread_legs(report: list, counts: dict, seen: dict, inputs, wants,
     _dist_leg(f"{tag} materialize", lambda: (
         dist_join.distributed_join_materialize(r, p_r, s, p_s, mesh,
                                                capacity_per_chip=cap)),
-        check_pairs, ("banded_compare_first", "banded_interval_select",
+        check_pairs, ("banded_window_first", "banded_interval_select",
                       "banded_compare_per_s"), report, counts, seen)
     report.append(f"2^{DIST_THREAD_SCALE} x 2^{DIST_THREAD_SCALE} global, "
                   f"full-range payloads, C++ oracles {want} and {want_hot}, "
@@ -2058,13 +2194,16 @@ def _thread_legs(report: list, counts: dict, seen: dict, inputs, wants,
 def _hold_seen(seen: dict, report: list) -> dict:
     """Each banded kernel against its plain version at every (CH, W) in
     `seen`, and both times at the largest and the smallest CH (a tail
-    chunk) of each width W. Per kernel: {"held_at": the shapes,
+    chunk) of each width W; the chunk entry points of kernels 1 and 3 at
+    their windowed twins' shapes. Per kernel: {"held_at": the shapes,
     "max_abs_err", "timed": the ends' errors and times}."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 1)
     held = {}
+    twin_of = {chunk: win for win, chunk in TWIN.items()}
     for name in KERNELS:
-        shapes = sorted(seen.get(name, ()), key=lambda shape: shape[::-1])
+        shapes = sorted(seen.get(twin_of.get(name, name), ()),
+                        key=lambda shape: shape[::-1])
         err = _hold(name, shapes, gen)
         ends = {}
         for ch, w in shapes:
@@ -2090,7 +2229,7 @@ def _hold_seen(seen: dict, report: list) -> dict:
 
 
 def phase_distributed() -> tuple:
-    """Returns, for each of kernels 1-4, its launches on each leg, and its
+    """Returns, for each banded kernel, its launches on each leg, and its
     holds at the shapes the legs gave it (`_hold_seen`); and config 5's
     lines. Each world's data and oracles are made before its first leg, so
     no leg is timed beside host work of the script's own."""
@@ -2138,15 +2277,15 @@ def _surface_cli(report: list, k1: dict, seen: dict):
     want = datagen.oracle_join_aggregate(rk, np.ones(n_r, np.int32), sk,
                                          np.ones(n_s, np.int32))
     for tag, argv, kernels in (
-            ("cli -b 7", ["-b", "7"], ("banded_compare_sum",)),
+            ("cli -b 7", ["-b", "7"], ("banded_window_sum",)),
             ("cli --materialize", ["-b", "7", "--materialize"],
-             ("banded_compare_first",)),
+             ("banded_window_first",)),
             ("cli -b 8", ["-b", "8"], ())):
         got, lines, launches = _cli_run(argv + SURFACE_CLI, seen)
         if got & 0xFFFFFFFF != want & 0xFFFFFFFF:
             raise AssertionError(f"{tag}: {got} results, C++ oracle {want}")
         _require(launches, tag, *kernels)
-        k1[tag] = launches["banded_compare_sum"]
+        k1[tag] = launches["banded_window_sum"]
         ran = {k: v for k, v in launches.items() if v}
         report.append(f"{tag} {n_r} x {n_s}: {got} results = C++ oracle "
                       f"({'; '.join(lines[2:5])}; launches {ran})")
@@ -2209,7 +2348,7 @@ def phase_surface(c5=None) -> tuple:
     """The user surface on the card: the CLI, the bench at 2^27, run_configs
     configs 1 and 2 at their default sizes, the group-by; `c5` is config 5's
     lines from the distributed phase, reported here. Returns kernel 1's
-    launches on each call, and kernels 1-4's holds at the shapes the calls
+    launches on each call, and the banded kernels' holds at the shapes the calls
     gave them (`_hold_seen`)."""
     report, k1, seen = [], {}, {}
     _surface_cli(report, k1, seen)
@@ -2221,8 +2360,8 @@ def phase_surface(c5=None) -> tuple:
     want = _oracle_value(SURFACE_BENCH_SCALE, 0.0)
     if not line["correct"] or line["aggregate"] != want:
         raise AssertionError(f"bench: {line}; checked-in oracle {want}")
-    _require(launches, "bench", "banded_compare_sum")
-    k1["bench"] = launches["banded_compare_sum"]
+    _require(launches, "bench", "banded_window_sum")
+    k1["bench"] = launches["banded_window_sum"]
     print(json.dumps(line))
     _check_shares(line)
     report.append("bench shares " + ", ".join(
@@ -2237,8 +2376,8 @@ def phase_surface(c5=None) -> tuple:
         bad = [ln for ln in lines if not ln["correct"]]
         if bad:
             raise AssertionError(f"run_configs {tag}: {bad}")
-        _require(launches, tag, "banded_compare_sum")
-        k1[tag] = launches["banded_compare_sum"]
+        _require(launches, tag, "banded_window_sum")
+        k1[tag] = launches["banded_window_sum"]
         report.append(f"run_configs {tag}: {len(lines)} lines correct")
     if c5 is not None:
         report.append(f"run_configs config 5: {len(c5)} lines correct, in "
@@ -2355,9 +2494,9 @@ def main(argv=None):
     part, at_config2 = _timed("partitioned", phase_partitioned, big)
     kstats["probe_aggregate_ranges"].update(at_config2)
     # kernel 1's launches in the out-of-memory regimes, beside the headline's
-    kstats["banded_compare_sum"]["launches_streaming"] = _timed(
+    kstats["banded_window_sum"]["launches_streaming"] = _timed(
         "streaming", phase_streaming, big)
-    kstats["banded_compare_sum"]["launches_coprocess"] = _timed(
+    kstats["banded_window_sum"]["launches_coprocess"] = _timed(
         "coprocess", phase_coprocess, big)
     del big
     torch.cuda.empty_cache()
@@ -2367,7 +2506,7 @@ def main(argv=None):
     legs, held, c5 = _timed("distributed", phase_distributed)
     torch.cuda.empty_cache()
     k1_surface, at_surface = _timed("surface", phase_surface, c5)
-    kstats["banded_compare_sum"]["launches_surface"] = k1_surface
+    kstats["banded_window_sum"]["launches_surface"] = k1_surface
     _timed("rates", phase_rates)
     for name in KERNELS:
         kstats[name]["launches_distributed"] = legs[name]
@@ -2379,10 +2518,14 @@ def main(argv=None):
     # each kernel's launches on its path: the aggregate, the config-3
     # pipeline, the config-2 ring, the 2^24 fast-path materialize, the
     # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"; the tile
-    # sort's call, `bench_stages`, the probe ladder
+    # sort's call, `bench_stages`, the probe ladder. The chunk entry points
+    # of kernels 1 and 3 lie on no path now (0 on the aggregate and the
+    # ring, where their windowed twins run)
     launches = {"banded_compare_sum": head["banded_compare_sum"],
                 "banded_compare_per_s": pipe["banded_compare_per_s"],
                 "banded_compare_first": ring["banded_compare_first"],
+                "banded_window_sum": head["banded_window_sum"],
+                "banded_window_first": ring["banded_window_first"],
                 "banded_interval_select": fast["banded_interval_select"],
                 "probe_aggregate_ranges": part["probe_aggregate_ranges"],
                 "merge_levels_vmem": sorts["merge_levels_vmem"],

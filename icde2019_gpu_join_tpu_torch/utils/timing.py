@@ -10,7 +10,8 @@ Its report adds each phase's share of the device's memory rate
 
 The card's rates live here and nowhere else: `detect_hbm_gbps` (the data
 sheet's memory rate, looked up by the card's name) and `int_ops_per_s` (SMs
-x 64 int32 lanes x the maximum SM clock). The bench's shares, the timer's
+x 128 integer operations a clock x the maximum SM clock). The bench's
+shares, the timer's
 roofline fractions and `chip_smoke.py`'s bounds all read them.
 """
 
@@ -37,7 +38,11 @@ DEFAULT_HBM_GBPS = {
     "H100 NVL": 3900.0,
     "cpu": 50.0,
 }
-INT32_LANES_PER_SM = 64
+# Integer operations an SM issues a clock: four schedulers, one warp
+# instruction of 32 lanes each. The INT32 pipe takes 64 lanes of them;
+# adds, moves and selects that compile to IMAD issue on the FMA pipe, the
+# other 64 (on an H100, kernel 1's predicated adds ran at 80 a clock).
+INT32_OPS_PER_SM_CLOCK = 128
 COPY_BYTES = 1 << 28        # the buffer an unknown card's copy rate is read on
 
 
@@ -76,7 +81,7 @@ def detect_hbm_gbps(device=None) -> float:
 
 
 def int_ops_per_s(device="cuda") -> float:
-    """The card's int32 operation rate: SMs x INT32_LANES_PER_SM x the
+    """The card's int32 operation rate: SMs x INT32_OPS_PER_SM_CLOCK x the
     maximum SM clock that `nvidia-smi --query-gpu=clocks.max.sm` reports
     (its line of the card's index: cards numbered as `nvidia-smi` numbers
     them)."""
@@ -90,7 +95,7 @@ def int_ops_per_s(device="cuda") -> float:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.split()
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * INT32_LANES_PER_SM * float(clocks[index]) * 1e6
+    return sms * INT32_OPS_PER_SM_CLOCK * float(clocks[index]) * 1e6
 
 
 @dataclass

@@ -392,7 +392,7 @@ def test_port_never_imports_jax():
         "names = [m.name for m in pkgutil.iter_modules(B.__path__)]\n"
         "assert sorted(names) == ['bench', 'construct_probes', 'dist_bench', "
         "'experimental_sort', 'merge_fix_validate', 'merge_sort_bench', "
-        "'microbench', 'overlap_bench', 'precache_oracles', "
+        "'microbench', 'overlap_bench', 'precache_oracles', 'probe_bench', "
         "'radix_proto_bench', 'run_configs', 'sortgeom_bench'], names\n"
         "for name in names:\n"
         "    importlib.import_module(B.__name__ + '.' + name)\n"

@@ -235,8 +235,8 @@ def test_int_ops_per_s(monkeypatch):
                         lambda index: types.SimpleNamespace(
                             multi_processor_count=132))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    assert timing.int_ops_per_s("cuda") == 132 * 64 * 1980e6
-    assert timing.int_ops_per_s("cuda:1") == 132 * 64 * 1755e6
+    assert timing.int_ops_per_s("cuda") == 132 * 128 * 1980e6
+    assert timing.int_ops_per_s("cuda:1") == 132 * 128 * 1755e6
     assert ran[0][:2] == ["nvidia-smi", "--query-gpu=clocks.max.sm"]
     with pytest.raises(ValueError, match="needs a card"):
         timing.int_ops_per_s("cpu")
