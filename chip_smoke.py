@@ -15,19 +15,24 @@ run of all phases can pass. The phases:
              side by side;
   kernel     each of the first five kernels against its plain version on the card,
              exact int32 equality: the four banded kernels, and the windowed
-             entry points of kernels 1 and 3, at small shapes (W > 1,
+             entry points of kernels 1, 2 and 3, at small shapes (W > 1,
              full-range payloads, empty windows) and at the shape their path
-             gives them, with both times at that shape; the windowed ones
+             gives them, with both times at that shape (kernel 2, both entry
+             points, at each of `KERNEL2_SHAPES`); the windowed ones
              also on edge windows (`WINDOW_EDGE_SHAPES` at rounds 1 and 3:
              empty and clamped windows, S and R pad rows, W of 1, 2 and 6,
              an empty round); the
              interval select (kernel 4) also at widths of 1, 257, 333 and 512
              columns on disjoint intervals and on overlapping, inverted and
              INT32_MIN / INT32_MAX ones; the
-             stream-range probe (kernel 5) at small plans (several partitions
-             per R tile, tiles with no chunks, a skewed tile with hundreds of
-             chunks, chunk counts past S, full-range payloads) and at
-             config 1's full plan, with both times there;
+             stream-range probe (kernel 5, a shared-memory hash table of
+             each R tile) at small plans (several partitions per R tile,
+             tiles with no chunks, a skewed tile with hundreds of chunks,
+             chunk counts past S, full-range payloads), at the table's edge
+             plans (a tile of one key, keys equal in their low 13 or 18
+             bits, INT32_MIN, -1, 0 and INT32_MAX as keys, 1024 keys of one
+             slot: the longest probe chain, wrapping at the table's end) and
+             at config 1's full plan, with both times there;
   kernel merge  the merge sort's kernels (6: `merge_levels_vmem`, 7: the two
              launches of `merge_level_hbm`, the plan and the merge) against
              their plain versions, keys and payloads exactly equal and the
@@ -118,11 +123,13 @@ run of all phases can pass. The phases:
              limit at 2^21 against the C++ oracle, best of 3; the overlap
              tool's line;
   late       `ClusteredJoin.late_aggregate` at 2^24 per side with 4 R and 2 S
-             columns, against the numpy oracle;
+             columns, against the numpy oracle; the windowed kernel 2 must
+             launch and its chunk entry point not at all;
   pipeline   BASELINE.json config 3, 2^24 R x 2^29 S, 64 groups, filter
              [100, 600): fused and streamed in 4 segments, equal to each
              other and to a direct-address numpy oracle, best of 3 and peak
-             device memory; and the general numpy oracle at 2^20
+             device memory, the windowed kernel 2 launched and its chunk
+             entry point not; and the general numpy oracle at 2^20
              duplicate-key R x 2^23 S;
   distributed  the distributed layer (`parallel/`) in two worlds on the card,
              its data and oracles all made before the first leg is timed.
@@ -208,7 +215,16 @@ floor its launches set (`bound_launches_ms`): 13 x the device time of one
 empty launch (CUDA events around 100 of them back to back).
 Kernel 7's entry also carries its plan kernel's time
 (`plan_ms`, beside the torch planner's wall time) and launches
-(`plan_launches`) and window 4096 at both levels; kernel 5's its time and bound at config 2's plan. The probe ladder is one entry: its launches are the probe
+(`plan_launches`) and window 4096 at both levels. Kernel 5's `ms` is its
+kernel alone (its C entry point on items made once), `wrapper_ms` the same
+call through its wrapper, which makes and uploads the items each call; its
+entry carries both and its bound at config 2's plan too (`config2_*`), and
+the bound the TPU design's TR x TS compares an item would have
+(`compare_bound_ms`). Kernel 2 has two entries, as kernel 1: the windowed
+one with its launches on the config-3 pipeline (and `launches_late`), the
+chunk entry with its launches on the fast path's extraction; both carry
+`timed`, their times at each of `KERNEL2_SHAPES` (the chunk entry also at
+the 2^24 fast path's extraction, (RING / 128, 6)). The probe ladder is one entry: its launches are the probe
 kernels run, its times their sums, with a map per probe. Last the result line `{"ok": true, "device": {...}}`.
 Any failure raises, so the exit code is not 0 and no result line is
 printed; that includes a machine without CUDA.
@@ -289,6 +305,7 @@ ROUTES = {
     # kernels 1 and 3 on the block views, the gathers of
     # icde2019_gpu_join_tpu/ops/band_join.py folded in
     "banded_window_sum": (BANDED_SOURCE, f"{BANDED_PALLAS}:44"),
+    "banded_window_per_s": (BANDED_SOURCE, f"{BANDED_PALLAS}:93"),
     "banded_window_first": (BANDED_SOURCE, f"{BANDED_PALLAS}:138"),
     "probe_aggregate_ranges": (
         "icde2019_gpu_join_tpu_torch/csrc/probe_ranges.cu",
@@ -303,9 +320,12 @@ ROUTES = {
 }
 # The integer operations each kernel's function needs per unit of work, for
 # its bound: per compared (S row, R column) pair a compare and one
-# predicated add (kernels 1 and 5), two adds (2), an add and a min (3),
-# both entry points of kernels 1 and 3 alike (a windowed call compares only
-# the columns before hi: masked ones need no compare); for
+# predicated add (kernel 1), two adds (2), an add and a min (3),
+# both entry points of kernels 1, 2 and 3 alike (a windowed call compares
+# only the columns before hi: masked ones need no compare); for the
+# stream-range probe (5), a hash table of each R tile since it was
+# redesigned, per row a build (R) or a lookup (S): a multiply and a shift
+# for the slot, a compare and an add (its bytes bound it: 8 a row); for
 # the interval select (4) the least any design needs, a subtraction and an
 # unsigned compare a pair ((uint32)(pos - lo) < len), since payloads are
 # touched per hit and not per pair; per compare-exchange of the merge
@@ -313,8 +333,9 @@ ROUTES = {
 # selects.
 KERNEL_OPS = {"banded_compare_sum": 2, "banded_compare_per_s": 3,
               "banded_compare_first": 3, "banded_interval_select": 2,
-              "banded_window_sum": 2, "banded_window_first": 3,
-              "probe_aggregate_ranges": 2, "merge_levels_vmem": 5,
+              "banded_window_sum": 2, "banded_window_per_s": 3,
+              "banded_window_first": 3,
+              "probe_aggregate_ranges": 4, "merge_levels_vmem": 5,
               "merge_level_hbm": 5, "sort_tiles": 5, "stage_reps": 5,
               "construct_probes": 5}
 # The exchanges of each construct probe: (stages, exchanges a stage).
@@ -447,6 +468,15 @@ def _require(counts: dict, path: str, *names):
             raise AssertionError(f"{path}: kernel {name} did not launch ({counts})")
 
 
+def _require_windowed_per_s(counts: dict, path: str):
+    """A per-S probe's path: the windowed kernel 2 launched, and its chunk
+    entry point, which reads gathered chunks, not at all."""
+    _require(counts, path, "banded_window_per_s")
+    if counts["banded_compare_per_s"]:
+        raise AssertionError(f"{path}: the chunk-array kernel 2 launched "
+                             f"{counts['banded_compare_per_s']} times")
+
+
 # ---- kernel inputs, made on the card from a seeded generator -------------
 
 def _ints(gen, lo: int, hi: int, shape) -> torch.Tensor:
@@ -557,6 +587,13 @@ def _window_sum_args(gen, ch, wb, edge_round=None):
     return (*_window_args(gen, ch, wb, edge_round), _full(gen, (1,)))
 
 
+def _window_per_s_args(gen, ch, wb, edge_round=None):
+    s_svb, _, r_svb, r_payb, ids, lo, hi, r, w = _window_args(gen, ch, wb,
+                                                             edge_round)
+    return (s_svb, r_svb, r_payb, ids, lo, hi, r, w,
+            _ints(gen, 0, 5, s_svb.shape), _full(gen, s_svb.shape))
+
+
 def _window_first_args(gen, ch, wb, edge_round=None):
     s_svb, _, r_svb, _, ids, lo, hi, r, w = _window_args(gen, ch, wb,
                                                          edge_round)
@@ -581,6 +618,8 @@ KERNELS = {
                                0),
     "banded_window_sum": (BC.banded_window_sum, BC.banded_window_sum_ref,
                           _window_sum_args, 1),
+    "banded_window_per_s": (BC.banded_window_per_s,
+                            BC.banded_window_per_s_ref, _window_per_s_args, 2),
     "banded_window_first": (BC.banded_window_first,
                             BC.banded_window_first_ref, _window_first_args, 2),
 }
@@ -589,7 +628,19 @@ KERNELS = {
 WINDOW_EDGE_SHAPES = [(0, 2), (5, 1), (77, 2), (300, 6), (2048, 6)]
 # the chunk entry point whose body each windowed kernel shares
 TWIN = {"banded_window_sum": "banded_compare_sum",
+        "banded_window_per_s": "banded_compare_per_s",
         "banded_window_first": "banded_compare_first"}
+# kernel 2's shapes, (CH, W), each held and timed, both entry points: a
+# probe chunk at W = 1 (config 3, the late aggregate), the CLI join's
+# (7812, 1), one rank's chunk (4096, 1), and the extraction's R side at
+# W = 6 on one rank of the 8-rank materialize and on `cli --materialize`
+KERNEL2_SHAPES = [(32768, 1), (7812, 1), (4096, 1), (4096, 6), (125000, 6)]
+# a windowed kernel's arguments: where ids, lo, hi, r, w start; the S arrays
+# read a row, the R arrays read a block, the [S blocks, 128] outputs read and
+# written a row (kernel 1's is its one-word accumulator)
+WINDOW_LAYOUT = {"banded_window_sum": (4, 2, 2, 0),
+                 "banded_window_per_s": (3, 1, 2, 2),
+                 "banded_window_first": (2, 1, 1, 2)}
 
 
 def _call(name: str, fn, args):
@@ -611,14 +662,13 @@ def _work(name: str, args, out) -> tuple:
     lanes = band_compare.LANES
     if not KERNELS[name][3]:
         return _nbytes(*args, *out), args[0].numel() * args[-1].shape[1]
-    s_rows = 2 if name == "banded_window_sum" else 1
-    ids, lo, hi, r, w = args[4:9] if s_rows == 2 else args[2:7]
+    at, s_arrays, r_arrays, out_arrays = WINDOW_LAYOUT[name]
+    ids, lo, hi, r, w = args[at:at + 5]
     base = lo[ids].long() + r * w
     blocks = int(torch.clamp(hi[ids].long() - base, 0, w).sum())
-    rows = ids.numel() * s_rows + blocks * s_rows
-    # the outputs are read and written: acc, or the ids' rows of h and fm
-    outs = 2 * (4 if s_rows == 2 else 2 * ids.numel() * lanes * 4)
-    return (rows * lanes * 4 + ids.numel() * (8 + 4 + 4) + outs,
+    rows = ids.numel() * (s_arrays + 2 * out_arrays) + blocks * r_arrays
+    acc = 8 if name == "banded_window_sum" else 0   # read and written
+    return (rows * lanes * 4 + ids.numel() * (8 + 4 + 4) + acc,
             blocks * lanes * lanes)
 
 
@@ -630,10 +680,11 @@ def _main_shapes() -> dict:
     chunk = (band_join._CHUNK_BLOCKS, 1)
     slots = RING // band_compare.LANES
     return {"banded_compare_sum": [chunk],
-            "banded_compare_per_s": [chunk, (slots, 6)],
+            "banded_compare_per_s": KERNEL2_SHAPES + [(slots, 6)],
             "banded_compare_first": [chunk],
             "banded_interval_select": [(slots, 4)],
             "banded_window_sum": [chunk],
+            "banded_window_per_s": KERNEL2_SHAPES,
             "banded_window_first": [chunk]}
 
 
@@ -730,6 +781,15 @@ def phase_kernel() -> dict:
               f"{SMALL_SHAPES + main}; at {main[0]}: kernel {st['ms']:.4f} ms, "
               f"plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
               f"by {st['bound_by']}")
+    # kernel 2, both entry points, timed at each of their main shapes
+    for name in ("banded_compare_per_s", "banded_window_per_s"):
+        stats[name]["timed"] = [{"shape": [ch, w],
+                                 **_time_at(name, ch, w, gen)}
+                                for ch, w in _main_shapes()[name]]
+        print(f"[kernel] {name} at " + "; ".join(
+            f"{tuple(st['shape'])}: kernel {st['ms']:.4f} ms, plain "
+            f"{st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms by "
+            f"{st['bound_by']}" for st in stats[name]["timed"]))
     # the windowed kernels on edge windows: rounds past 0, empty and clamped
     # windows, W of 1, 2 and 6, an empty round
     for name in TWIN:
@@ -785,9 +845,57 @@ def _plan_of(r: Relation, s: Relation, bits: int, tr: int, ts: int):
 
 
 def _range_work(cols, s_start, s_nch, tr: int, ts: int):
-    """(work items, compares) of one call."""
+    """(work items, rows, compares) of one call: the rows the function
+    needs, each R row of a tile with work built into a table once and each
+    S row of each item looked up; and the compares of the TPU kernel's
+    design, TR * TS an item."""
     tile, _ = probe_ranges._items(s_start, s_nch, cols[2].shape[0], ts)
-    return tile.size, tile.size * tr * ts
+    return (tile.size, np.unique(tile).size * tr + tile.size * ts,
+            tile.size * tr * ts)
+
+
+# 1024 keys whose slot in kernel 5's table is its last one (2047): the
+# longest probe chain, wrapping at the table's end (csrc/probe_ranges.cu:
+# slot = the top 11 bits of key * 0x9E3779B1 mod 2^32)
+_HASH_MUL = 0x9E3779B1
+ONE_SLOT_KEYS = np.array(
+    [(((2047 << 21) | j) * pow(_HASH_MUL, -1, 1 << 32)) & 0xFFFFFFFF
+     for j in range(1024)], np.uint32).view(np.int32)
+INT32_EDGES = (-2**31, -1, 0, 2**31 - 1)
+RANGE_EDGES = ("one key", "low 13 bits", "low 18 bits", "int32 edges",
+               "one slot")
+
+
+def _range_edge_inputs(gen, rs: np.random.RandomState, case: str):
+    """Kernel 5's table at its edges, in a synthetic plan of 6 tiles over
+    8 chunks of 1024: a tile of one key; keys equal in their low 13 or 18
+    bits (the radix field a tile shares); INT32_MIN, -1, 0 and INT32_MAX
+    as keys; a tile of ONE_SLOT_KEYS. S draws a third of its keys from R."""
+    tr = ts = 1024
+    n_tiles, n_chunks = 6, 8
+    n_r, n_s = n_tiles * tr, n_chunks * ts
+    rk = _ints(gen, 0, 3000, (n_r,))
+    if case == "one key":
+        rk[tr:2 * tr] = 12345
+    elif case.startswith("low"):
+        bits = int(case.split()[1])
+        d = _ints(gen, 0, 1 << (31 - bits), (n_r,))
+        rk = (d << bits) | 0x155
+        rk[::2] = -rk[::2] - 1
+    elif case == "int32 edges":
+        edges = torch.tensor(INT32_EDGES, dtype=torch.int32, device=DEVICE)
+        rk[::5] = edges[_ints(gen, 0, 4, rk[::5].shape).long()]
+    else:
+        rk[:tr] = torch.from_numpy(ONE_SLOT_KEYS).to(DEVICE)
+    sk = _ints(gen, 0, 3000, (n_s,))
+    sk[::3] = rk[_ints(gen, 0, n_r, sk[::3].shape).long()]
+    if case == "int32 edges":
+        sk[1::7] = edges[_ints(gen, 0, 4, sk[1::7].shape).long()]
+    cols = (rk, _full(gen, (n_r,)), sk, _full(gen, (n_s,)))
+    s_start = (rs.randint(0, n_chunks, n_tiles) * ts).astype(np.int32)
+    s_nch = rs.randint(1, n_chunks + 1, n_tiles).astype(np.int32)
+    s_start[0], s_nch[0] = 0, n_chunks   # tile 0 against all of S
+    return cols, s_start, s_nch
 
 
 @functools.lru_cache(maxsize=None)
@@ -846,6 +954,8 @@ def phase_kernel_ranges() -> dict:
         (1024, 1152, 5, 6, [1, 6, 0, 2, 9]),
     ]
     cases = [(_range_inputs(gen, rs, *p), p[0], p[1]) for p in plans]
+    cases += [(_range_edge_inputs(gen, rs, case), 1024, 1024)
+              for case in RANGE_EDGES]
     rk = rs.permutation(1 << 17)[:1 << 16].astype(np.int32)      # skewed S
     sk = rk[np.minimum(rs.zipf(1.3, 1 << 18) - 1, rk.size - 1)]
     full = lambda n: rs.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
@@ -864,7 +974,7 @@ def phase_kernel_ranges() -> dict:
                                                        tile_s=ts)
         err = max(err, _max_err(got, want))
         torch.cuda.synchronize()
-        items, compares = _range_work(cols, s_start, s_nch, tr, ts)
+        items = _range_work(cols, s_start, s_nch, tr, ts)[0]
         shapes.append(f"{tr}x{ts}:{items} items, max {int(s_nch.max())} chunks")
         if err:
             raise AssertionError(f"probe_aggregate_ranges: kernel != plain at "
@@ -872,19 +982,26 @@ def phase_kernel_ranges() -> dict:
     (cols, s_start, s_nch), tr, ts = cases[-1]
     args = (*cols, s_start, s_nch)
     fn = lambda: probe_ranges.probe_aggregate_ranges(*args, tile_r=tr, tile_s=ts)
-    ms = _time_ms(fn, 20)
+    ms = _time_ms(probe_bench.kernel5_launch(cols, s_start, s_nch, tr, ts), 20)
+    wrapper_ms = _time_ms(fn, 20)
     plain_ms = _time_ms(lambda: probe_ranges.probe_aggregate_ranges_ref(
         *args, tile_r=tr, tile_s=ts), 3)
-    items, compares = _range_work(*cases[-1][0], tr, ts)
+    items, rows, compares = _range_work(*cases[-1][0], tr, ts)
     # the four columns read once, and the scalar written
     bound = _bound(_nbytes(*cols) + 4,
-                   compares * KERNEL_OPS["probe_aggregate_ranges"])
-    print(f"[kernel] probe_aggregate_ranges: equal to plain at {shapes}; at "
-          f"config 1's plan ({items} items, {compares:.3e} compares): kernel "
-          f"{ms:.4f} ms ({compares / ms / 1e9:.3f} T compares/s), plain "
-          f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
-          f"{bound['bound_by']}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+                   rows * KERNEL_OPS["probe_aggregate_ranges"])
+    compare_ms = _bound(0, compares * 2)["bound_ms"]
+    print(f"[kernel] probe_aggregate_ranges: equal to plain at {shapes}, the "
+          f"edge plans {RANGE_EDGES} among them; at "
+          f"config 1's plan ({items} items, {rows} rows): kernel "
+          f"{ms:.4f} ms ({_nbytes(*cols) / ms / 1e6:.1f} GB/s of its "
+          f"columns; through the wrapper, items made and uploaded each call, "
+          f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} "
+          f"ms by {bound['bound_by']} (the TPU design's {compares:.3e} "
+          f"compares: {compare_ms:.4f} ms)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "wrapper_ms": wrapper_ms, "compare_bound_ms": compare_ms}
 
 
 # ---- kernels 6 and 7: the merge sort ----------------------------------------
@@ -1554,7 +1671,7 @@ def phase_sorts(big) -> dict:
     packed = lambda: pipelines.filter_probe_groupby(
         *args, c["lo"], c["hi"], c["groups"], sort_impl="packed")
     got, launches = _launched(packed)
-    _require(launches, "config 3 packed", "banded_compare_per_s")
+    _require_windowed_per_s(launches, "config 3 packed")
     t_c3, got = _best_s(packed)
     for g, w, what in zip(got, want3, ("COUNT", "SUM")):
         if not np.array_equal(g.cpu().numpy(), w):
@@ -1737,20 +1854,25 @@ def _partitioned_config2(lines: list, big) -> tuple:
     if res.aggregate != want or agg != want:
         raise AssertionError(f"pallas config 2: {agg} != oracle {want}")
     cols, s_start, s_nch = _plan_of(r, s, CONFIG2_BITS, RANGE_TILE, RANGE_TILE)
-    items, compares = _range_work(cols, s_start, s_nch, RANGE_TILE, RANGE_TILE)
-    k_ms = _time_ms(lambda: probe_ranges.probe_aggregate_ranges(
+    items, rows, compares = _range_work(cols, s_start, s_nch, RANGE_TILE,
+                                        RANGE_TILE)
+    k_ms = _time_ms(probe_bench.kernel5_launch(cols, s_start, s_nch), 10)
+    wrapper_ms = _time_ms(lambda: probe_ranges.probe_aggregate_ranges(
         *cols, s_start, s_nch, tile_r=RANGE_TILE, tile_s=RANGE_TILE), 10)
     # the four columns read once, and the scalar written
-    bound = _bound(_nbytes(*cols) + 4,
-                   compares * KERNEL_OPS["probe_aggregate_ranges"])
+    nbytes = _nbytes(*cols) + 4
+    bound = _bound(nbytes, rows * KERNEL_OPS["probe_aggregate_ranges"])
+    compare_ms = _bound(0, compares * 2)["bound_ms"]
     del cols
     lines.append(f"pallas config 2, 2^{HEADLINE_SCALE} per side at "
                  f"{CONFIG2_BITS} bits = {agg} (oracle), best of {REPS} "
                  f"{t_c2 * 1e3:.3f} ms, peak {peak / 2**30:.2f} GiB, {items} "
-                 f"items, {compares:.3e} compares, kernel alone {k_ms:.4f} ms "
-                 f"({compares / k_ms / 1e9:.3f} T compares/s), bound "
-                 f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}, launches "
-                 f"{launches}")
+                 f"items, {rows} rows, kernel alone {k_ms:.4f} ms "
+                 f"({nbytes / k_ms / 1e6:.1f} GB/s of its columns; "
+                 f"{wrapper_ms:.4f} ms through the wrapper), bound "
+                 f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (the TPU "
+                 f"design's {compares:.3e} compares: {compare_ms:.4f} ms), "
+                 f"launches {launches}")
 
     sm = ClusteredJoin(EngineConfig(probe_mode="sort_merge"), device=DEVICE)
     t_sm, agg = _best_s(lambda: sm.aggregate(r, s).aggregate)
@@ -1758,9 +1880,10 @@ def _partitioned_config2(lines: list, big) -> tuple:
         raise AssertionError(f"sort_merge 2^{HEADLINE_SCALE}: {agg} != {want}")
     lines.append(f"sort_merge 2^{HEADLINE_SCALE} = oracle, best of {REPS} "
                  f"{t_sm * 1e3:.3f} ms")
-    return launches, {"config2_ms": k_ms,
+    return launches, {"config2_ms": k_ms, "config2_wrapper_ms": wrapper_ms,
                       "config2_bound_ms": bound["bound_ms"],
-                      "config2_bound_by": bound["bound_by"]}
+                      "config2_bound_by": bound["bound_by"],
+                      "config2_compare_bound_ms": compare_ms}
 
 
 def phase_partitioned(big) -> tuple:
@@ -1927,7 +2050,7 @@ def phase_late():
     s = Relation.from_numpy(sk, device=DEVICE)
     rc, sc = (torch.from_numpy(c).to(DEVICE) for c in (r_cols, s_cols))
     res, launches = _launched(lambda: engine.late_aggregate(r, s, rc, sc))
-    _require(launches, "late", "banded_compare_per_s")
+    _require_windowed_per_s(launches, "late")
     t, agg = _best_s(lambda: engine.late_aggregate(r, s, rc, sc).aggregate)
     ids = np.arange(n, dtype=np.int32)
     want = oracle.join_late_materialize_sum(rk, ids, sk, ids, r_cols, s_cols)
@@ -1975,7 +2098,7 @@ def phase_pipeline():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     got, launches = _launched(fused)
-    _require(launches, "pipeline", "banded_compare_per_s")
+    _require_windowed_per_s(launches, "pipeline")
     t_fused, got = _best_s(fused)
     peak_fused = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2202,7 +2325,8 @@ def _hold_seen(seen: dict, report: list) -> dict:
     held = {}
     twin_of = {chunk: win for win, chunk in TWIN.items()}
     for name in KERNELS:
-        shapes = sorted(seen.get(twin_of.get(name, name), ()),
+        shapes = sorted(set(seen.get(name, ())) | seen.get(twin_of.get(name),
+                                                           set()),
                         key=lambda shape: shape[::-1])
         err = _hold(name, shapes, gen)
         ends = {}
@@ -2500,8 +2624,9 @@ def main(argv=None):
         "coprocess", phase_coprocess, big)
     del big
     torch.cuda.empty_cache()
-    _timed("late", phase_late)
+    late = _timed("late", phase_late)
     pipe = _timed("pipeline", phase_pipeline)
+    kstats["banded_window_per_s"]["launches_late"] = late["banded_window_per_s"]
     torch.cuda.empty_cache()
     legs, held, c5 = _timed("distributed", phase_distributed)
     torch.cuda.empty_cache()
@@ -2520,9 +2645,11 @@ def main(argv=None):
     # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"; the tile
     # sort's call, `bench_stages`, the probe ladder. The chunk entry points
     # of kernels 1 and 3 lie on no path now (0 on the aggregate and the
-    # ring, where their windowed twins run)
+    # ring, where their windowed twins run); kernel 2's runs on the fast
+    # path's extraction, its windowed twin on the config-3 pipeline
     launches = {"banded_compare_sum": head["banded_compare_sum"],
-                "banded_compare_per_s": pipe["banded_compare_per_s"],
+                "banded_compare_per_s": fast["banded_compare_per_s"],
+                "banded_window_per_s": pipe["banded_window_per_s"],
                 "banded_compare_first": ring["banded_compare_first"],
                 "banded_window_sum": head["banded_window_sum"],
                 "banded_window_first": ring["banded_window_first"],

@@ -15,7 +15,7 @@
 //   tj_banded_interval_select (banded_interval_select, :213, kernel :185)
 //       o_k[i,l] = SUM of p_k[i,j] over j with lo[i,j] <= pos[i,l] < hi[i,j]
 //
-// The windowed entry points run kernels 1 and 3 on the sorted, 128-padded
+// The windowed entry points run kernels 1, 2 and 3 on the sorted, 128-padded
 // block views themselves ([S blocks,128], [R blocks,128]) and a round's S
 // block ids, so the probe gathers nothing (TPU: ops/band_join.py gathered
 // each chunk into VMEM-sized arrays first). Chunk row i is S block ids[i]
@@ -24,6 +24,10 @@
 //
 //   tj_banded_window_sum    *out += the chunk's banded_compare_sum; masked
 //                           columns add nothing (their rp is 0)
+//   tj_banded_window_per_s  h[ids[i]] += and t[ids[i]] += the chunk's
+//                           banded_compare_per_s, where a masked column has
+//                           key _R_PAD_SV and rp 0; so S pad rows (sortval
+//                           INT32_MAX) count them in h, as before
 //   tj_banded_window_first  h[ids[i]] += and fm[ids[i]] = min with the
 //                           chunk's banded_compare_first, where a masked
 //                           column has key _R_PAD_SV and gidx = (its block
@@ -37,9 +41,9 @@
 // (CH*128*k + CH*WB*m)*4 bytes moved, i.e. 8 or more pairs per byte at
 // W = 1: the operations a pair costs, not device memory.
 //
-// Kernels 1 and 3, one design, one body each (window_sum_kernel,
-// window_first_kernel), reached by both entry points (the chunk ones with
-// identity ids and full windows):
+// Kernels 1, 2 and 3, one design, one body each (window_sum_kernel,
+// window_per_s_kernel, window_first_kernel), reached by both entry points
+// (the chunk ones with identity ids and full windows):
 //   * a warp takes one chunk row and each thread four of its S rows (lane
 //     slot 32 s + t, coalesced), so every staged R column serves four
 //     pairs; a block is kWinRows warps on kWinRows rows, each staging its
@@ -57,31 +61,29 @@
 //   * kernel 1 is a compare and a predicated add a pair (two integer
 //     operations), then t * sp, a warp reduction and one atomicAdd a row
 //     (addition mod 2^32 commutes, so the order cannot change the sum);
-//     kernel 3 a compare, a count and a min a pair (three), plus one add a
-//     column for the windowed gidx (blk * 128 + j, not staged); masked
-//     blocks are never staged: kernel 3 adds them to the S rows whose key is
-//     the sentinel in one step;
+//     kernel 2 a compare, a count and an add a pair (three); kernel 3 a
+//     compare, a count and a min a pair (three), plus one add a column for
+//     the windowed gidx (blk * 128 + j, not staged); masked blocks are never
+//     staged: kernels 2 and 3 add them to the S rows whose key is the
+//     sentinel in one step;
 //   * the grid is ceil(CH / kWinRows) blocks, so a small chunk still
 //     spreads over every SM: at (7812, 1) 1953 blocks, 12 of which fit an
 //     SM by registers, 1.23 waves on 132 SMs.
 // What the compiler made of it (nvcc 12.8, -O3, sm_90a; `-Xptxas -v`,
-// `cuobjdump -sass`): 40 / 42 registers for the windowed kernels 1 / 3,
-// 36 / 34 for their chunk entries, no spills, 8 KB of shared memory a
-// block (4 KB for the windowed kernel 3). Kernel 1's loop is ISETP +
+// `cuobjdump -sass`): 40 / 40 / 42 registers for the windowed kernels 1 /
+// 2 / 3, 36 / 34 / 34 for their chunk entries, no spills, 8 KB of shared
+// memory a block (4 KB for the windowed kernel 3). Kernel 1's loop is ISETP +
 // @P IMAD.IADD a pair: the compare on the INT32 pipe, the add on the FMA
 // pipe. Kernel 3's is ISETP + @P VIADD + @P VIMNMX a pair and a VIADD a
 // column. So the note's bound is the issue rate, 128 integer operations an
 // SM a clock (utils/timing.int_ops_per_s), not the INT32 pipe's 64: at
 // (32768, 1) the pairs' 2 and 3 operations need 0.0321 and 0.0481 ms on an
-// H100, which kernels 1 and 3 reach at 65% and 60%.
+// H100, which kernels 1, 2 and 3 reach at 65%, 65% (the chunk entry: 75%)
+// and 60%. Kernel 2 took 0.1403 ms there with a block a row and one S key
+// a thread, two staged words a pair, the load pipe its limit.
 // Sums are uint32 (signed overflow is undefined in C++, unsigned wraps mod
 // 2^32). The TPU kernels' in-VMEM transposes and sublane loops have no
 // counterpart here. wgmma does not apply to integer equality.
-//
-// Kernel 2 keeps the earlier design: one thread block per chunk row, one
-// thread per S lane holding its key in a register, the row's R columns
-// staged through shared memory in tiles of kTile (for_each_r_tile), each
-// staged column read as a broadcast.
 //
 // Kernel 4, the interval select, has a design of its own. With one slot a
 // thread and five staged columns (lo, hi, p1, p2, p3) a pair cost more than
@@ -114,9 +116,8 @@
 namespace {
 
 constexpr int kLanes = 128;   // S rows per chunk row
-constexpr int kTile = 1024;   // kernel 2: R columns staged per pass
 
-// ---- kernels 1 and 3 --------------------------------------------------------
+// ---- kernels 1, 2 and 3 -----------------------------------------------------
 
 constexpr int kWinRows = 4;             // chunk rows a block, one warp each
 constexpr int kSlots = kLanes / 32;     // S rows a thread: 4
@@ -361,47 +362,86 @@ window_first_kernel(const int32_t* __restrict__ sk,
 
 // ---- kernel 2 ----------------------------------------------------------------
 
-// Stages the kCols R-side columns cols[c][0, wb) of one chunk row through
-// shared memory, kTile at a time, and after each tile calls visit(tile, n):
-// every thread may then read tile[c][0, n) as broadcasts.
-template <int kCols, typename Visit>
-__device__ __forceinline__ void for_each_r_tile(
-    const int32_t* const (&cols)[kCols], int64_t wb, Visit&& visit) {
-  __shared__ __align__(16) int32_t tile[kCols][kTile];
-  for (int64_t base = 0; base < wb; base += kTile) {
-    const int n = static_cast<int>(wb - base < kTile ? wb - base : kTile);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int j = threadIdx.x; j < n; j += kLanes) {
+// One staged column against a thread's four S keys: a compare, then the
+// count and the payload add under its predicate (ISETP + two predicated
+// adds a pair, not `eq ? rp : 0`).
+__device__ __forceinline__ void per_s_column(const int32_t (&key)[kSlots],
+                                             int32_t rk, int32_t rp,
+                                             uint32_t (&h)[kSlots],
+                                             uint32_t (&t)[kSlots]) {
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) tile[c][j] = cols[c][base + j];
-    }
-    __syncthreads();
-    visit(tile, n);
+  for (int s = 0; s < kSlots; ++s) {
+    asm("{\n.reg .pred p;\nsetp.eq.s32 p, %2, %3;\n"
+        "@p add.u32 %0, %0, 1;\n@p add.u32 %1, %1, %4;\n}\n"
+        : "+r"(h[s]), "+r"(t[s]) : "r"(key[s]), "r"(rk), "r"(rp));
   }
 }
 
-__global__ void __launch_bounds__(kLanes)
-band_compare_per_s_kernel(const int32_t* __restrict__ sk,
-                          const int32_t* __restrict__ rk,
-                          const int32_t* __restrict__ rp, int64_t wb,
-                          int32_t* __restrict__ h_out,
-                          int32_t* __restrict__ t_out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
-  const int32_t key = sk[i];
-  const int32_t* const cols[2] = {rk + blockIdx.x * wb, rp + blockIdx.x * wb};
+template <bool kWindowed>
+__global__ void __launch_bounds__(kWinRows * 32)
+window_per_s_kernel(const int32_t* __restrict__ sk,
+                    const int32_t* __restrict__ rk,
+                    const int32_t* __restrict__ rp,
+                    const int64_t* __restrict__ ids,
+                    const int32_t* __restrict__ lo,
+                    const int32_t* __restrict__ hi, int64_t n, int64_t nsb,
+                    int64_t nrb, int64_t r, int w, int32_t* __restrict__ h_out,
+                    int32_t* __restrict__ t_out) {
+  __shared__ __align__(128) int32_t tile[kWinRows][2][kStageBlocks][kLanes];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWinRows + warp;
+  if (row >= n) return;   // the whole warp; no block barrier follows
+  const Row q = plan_row<kWindowed>(row, ids, lo, hi, nsb, r, w);
 
-  int32_t h = 0;
-  uint32_t t = 0;
-  for_each_r_tile<2>(cols, wb, [&](const int32_t (*s)[kTile], int n) {
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
-      const bool eq = s[0][j] == key;
-      h += eq;
-      t += eq ? static_cast<uint32_t>(s[1][j]) : 0u;
+  int32_t key[kSlots];
+  uint32_t h[kSlots], t[kSlots];   // counts and payload sums, mod 2^32
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    key[s] = sk[q.s * kLanes + 32 * s + lane];
+    h[s] = t[s] = 0;
+  }
+  const int32_t* const src[2] = {rk, rp};
+  for (int kb = 0; kb < q.valid; kb += kStageBlocks) {
+    const int nb = min(kStageBlocks, q.valid - kb);
+    int64_t blk[kStageBlocks];
+#pragma unroll
+    for (int b = 0; b < kStageBlocks; ++b) {
+      blk[b] = clamp_block(q.r0 + kb + b, nrb);
     }
-  });
-  h_out[i] = h;
-  t_out[i] = static_cast<int32_t>(t);
+    __syncwarp();   // every lane is done with the previous pass
+    stage_blocks<2>(tile[warp], src, blk, nb, lane);
+    const int4* k4 = reinterpret_cast<const int4*>(tile[warp][0][0]);
+    const int4* p4 = reinterpret_cast<const int4*>(tile[warp][1][0]);
+#pragma unroll 4
+    for (int j = 0; j < nb * (kLanes / 4); ++j) {
+      const int4 kk = k4[j];
+      const int4 pp = p4[j];
+      per_s_column(key, kk.x, pp.x, h, t);
+      per_s_column(key, kk.y, pp.y, h, t);
+      per_s_column(key, kk.z, pp.z, h, t);
+      per_s_column(key, kk.w, pp.w, h, t);
+    }
+  }
+  if constexpr (kWindowed) {
+    // masked blocks: 128 sentinel columns each, rp 0, never staged
+    const int masked = w - q.valid;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (masked > 0 && key[s] == kPadSv) h[s] += kLanes * masked;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int64_t i = q.s * kLanes + 32 * s + lane;
+    if constexpr (kWindowed) {   // ids are unique within a round
+      h_out[i] = static_cast<int32_t>(static_cast<uint32_t>(h_out[i]) + h[s]);
+      t_out[i] = static_cast<int32_t>(static_cast<uint32_t>(t_out[i]) + t[s]);
+    } else {
+      h_out[i] = static_cast<int32_t>(h[s]);
+      t_out[i] = static_cast<int32_t>(t[s]);
+    }
+  }
 }
 
 // ---- kernel 4 ----------------------------------------------------------------
@@ -509,11 +549,10 @@ unsigned int win_grid(int64_t n) {
 }  // namespace
 
 // Every entry point launches on `stream`, does not synchronise, and returns
-// cudaGetLastError(). ch is the number of chunk rows (kernel 2: one block
-// each; kernels 1, 3 and 4: one warp each), wb the width of the R-side
-// arrays (kernels 1 and 3: a multiple of 128, the wrappers check it). The
-// caller checks dtypes, shapes and the 16-byte alignment of every [*, 128]
-// array.
+// cudaGetLastError(). ch is the number of chunk rows (one warp each), wb
+// the width of the R-side arrays (kernels 1, 2 and 3: a multiple of 128, the
+// wrappers check it). The caller checks dtypes, shapes and the 16-byte
+// alignment of every [*, 128] array.
 
 // Adds the chunk's sum to out[0] (a uint32 the caller zeroed).
 extern "C" int tj_banded_compare_sum(const void* sk, const void* sp,
@@ -532,9 +571,10 @@ extern "C" int tj_banded_compare_per_s(const void* sk, const void* rk,
                                        const void* rp, void* h, void* t,
                                        int64_t ch, int64_t wb, void* stream) {
   if (ch <= 0) return 0;
-  band_compare_per_s_kernel<<<static_cast<unsigned int>(ch), kLanes, 0,
-                              as_stream(stream)>>>(
-      in(sk), in(rk), in(rp), wb, out(h), out(t));
+  window_per_s_kernel<false><<<win_grid(ch), kWinRows * 32, 0,
+                               as_stream(stream)>>>(
+      in(sk), in(rk), in(rp), nullptr, nullptr, nullptr, ch, ch,
+      ch * (wb / kLanes), 0, static_cast<int>(wb / kLanes), out(h), out(t));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,8 +592,8 @@ extern "C" int tj_banded_compare_first(const void* sk, const void* rk,
 // The windowed entry points: n chunk rows (ids[0, n), int64), nsb S blocks
 // (s_* [nsb, 128], lo and hi [nsb] int32), nrb R blocks (r_* [nrb, 128]),
 // round r, width w. The sum adds into sum[0] (a uint32 the caller zeroed
-// once for all its rounds); "first" updates h and fm ([nsb, 128]) at the
-// ids, which must be unique within a call.
+// once for all its rounds); "per_s" updates h and t, "first" h and fm
+// ([nsb, 128]) at the ids, which must be unique within a call.
 extern "C" int tj_banded_window_sum(const void* s_svb, const void* s_payb,
                                     const void* r_svb, const void* r_payb,
                                     const void* ids, const void* lo,
@@ -579,6 +619,20 @@ extern "C" int tj_banded_window_first(const void* s_svb, const void* r_svb,
                               as_stream(stream)>>>(
       in(s_svb), in(r_svb), nullptr, static_cast<const int64_t*>(ids), in(lo),
       in(hi), n, nsb, nrb, r, static_cast<int>(w), out(h), out(fm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tj_banded_window_per_s(const void* s_svb, const void* r_svb,
+                                      const void* r_payb, const void* ids,
+                                      const void* lo, const void* hi, void* h,
+                                      void* t, int64_t n, int64_t nsb,
+                                      int64_t nrb, int64_t r, int64_t w,
+                                      void* stream) {
+  if (n <= 0) return 0;
+  window_per_s_kernel<true><<<win_grid(n), kWinRows * 32, 0,
+                              as_stream(stream)>>>(
+      in(s_svb), in(r_svb), in(r_payb), static_cast<const int64_t*>(ids),
+      in(lo), in(hi), n, nsb, nrb, r, static_cast<int>(w), out(h), out(t));
   return static_cast<int>(cudaGetLastError());
 }
 

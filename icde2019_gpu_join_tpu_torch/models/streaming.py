@@ -19,7 +19,7 @@ is queued, then segment k + 1 is staged and its upload issued, then segment
 k is probed: the card sorts while the host stages, and the copy engine works
 while the probe runs. Unlike the JAX pipeline, the probe itself reads the
 host once per segment (its round histogram, `ops/band_join.
-_probe_chunks`), so the host follows the device segment by segment.
+_probe_schedule`), so the host follows the device segment by segment.
 
 Segment results accumulate on the device (sums mod 2^32 are associative and
 commutative, so segmentation does not change the aggregate); one host read

@@ -15,12 +15,14 @@ to the uint32 sum).
     banded_interval_select(pos, lo, hi, p1, p2, p3) -> (o1, o2, o3)  [CH, 128]
         o_k = SUM of p_k[i,j] over j with lo[i,j] <= pos[i,l] < hi[i,j]
 
-Kernels 1 and 3 take WB a multiple of 128 (window_blocks * 128, as in JAX).
-Their windowed entry points read the sorted, 128-padded block views
+Kernels 1, 2 and 3 take WB a multiple of 128 (window_blocks * 128, as in
+JAX). Their windowed entry points read the sorted, 128-padded block views
 themselves, so the probe gathers no chunk:
 
     banded_window_sum(s_svb, s_payb, r_svb, r_payb, ids, lo, hi, r, w, acc)
         acc += banded_compare_sum of the round's chunk                 [1]
+    banded_window_per_s(s_svb, r_svb, r_payb, ids, lo, hi, r, w, h, t)
+        h[ids] += and t[ids] += its banded_compare_per_s     [S blocks, 128]
     banded_window_first(s_svb, r_svb, ids, lo, hi, r, w, h, fm)
         h[ids] += and fm[ids] = min with its banded_compare_first  [S blocks, 128]
 
@@ -59,6 +61,7 @@ LAUNCHES: Dict[str, int] = {
     "banded_compare_first": 0,
     "banded_interval_select": 0,
     "banded_window_sum": 0,
+    "banded_window_per_s": 0,
     "banded_window_first": 0,
 }
 
@@ -70,6 +73,7 @@ _SIGNATURES = {
     "banded_compare_first": (5, 2),
     "banded_interval_select": (9, 2),
     "banded_window_sum": (8, 5),
+    "banded_window_per_s": (8, 5),
     "banded_window_first": (7, 5),
 }
 
@@ -168,6 +172,21 @@ def banded_window_sum_ref(s_svb, s_payb, r_svb, r_payb, ids, lo, hi, r: int,
     return acc
 
 
+def banded_window_per_s_ref(s_svb, r_svb, r_payb, ids, lo, hi, r: int,
+                            w: int, h, t):
+    """Plain version of `banded_window_per_s`: the gathers (masked keys
+    R_PAD_SV, rp 0), `banded_compare_per_s_ref`, then `index_add_` at the
+    ids."""
+    _check_ids(ids, s_svb.shape[0])
+    bidx, valid = window_plan(ids, lo, hi, r, w, r_svb.shape[0])
+    hc, tc = banded_compare_per_s_ref(
+        s_svb[ids], gather_window(r_svb, bidx, valid, R_PAD_SV),
+        gather_window(r_payb, bidx, valid, 0))
+    h.index_add_(0, ids, hc)
+    t.index_add_(0, ids, tc)
+    return h, t
+
+
 def banded_window_first_ref(s_svb, r_svb, ids, lo, hi, r: int, w: int, h,
                             fm):
     """Plain version of `banded_window_first`: the gathers (masked keys
@@ -186,7 +205,7 @@ def banded_window_first_ref(s_svb, r_svb, ids, lo, hi, r: int, w: int, h,
 
 
 def _aligned(name: str, x: torch.Tensor):
-    """Kernels 1 and 3 copy 16-byte pieces of 512-byte rows."""
+    """Kernels 1, 2 and 3 copy 16-byte pieces of 512-byte rows."""
     if x.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
@@ -194,7 +213,7 @@ def _aligned(name: str, x: torch.Tensor):
 def _check(lane_cols: dict, window_cols: dict, blocks: bool = False):
     """Every array int32, 2-D, contiguous, on one device, with CH rows;
     lane arrays 128 wide, window arrays all of one shape. With `blocks`
-    (kernels 1 and 3), WB is a multiple of 128 and every array starts on a
+    (kernels 1, 2 and 3), WB is a multiple of 128 and every array starts on a
     16-byte boundary."""
     first = next(iter(lane_cols.values()))
     ch = first.shape[0] if first.dim() == 2 else -1
@@ -240,7 +259,7 @@ def _check_blocks(arrays: dict, device) -> int:
 def _check_window(s_side: dict, r_side: dict, ids, lo, hi, r, w,
                   acc=None) -> Tuple[int, int]:
     """The windowed entry points' arguments: the S block views and the
-    outputs h, fm [S blocks, 128], the R block views [R blocks >= 1, 128],
+    outputs h, t, fm [S blocks, 128], the R block views [R blocks >= 1, 128],
     all as `_check_blocks` asks; ids int64 [n]; lo, hi int32 [S blocks];
     acc int32 [1]; r >= 0, w >= 1; one device. Returns (S blocks, R
     blocks)."""
@@ -307,7 +326,7 @@ def banded_compare_sum(sk: torch.Tensor, sp: torch.Tensor,
 def banded_compare_per_s(sk: torch.Tensor, rk: torch.Tensor,
                          rp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per S lane: (match count h, SUM of matched rp t), both [CH, 128]."""
-    _check({"sk": sk}, {"rk": rk, "rp": rp})
+    _check({"sk": sk}, {"rk": rk, "rp": rp}, blocks=True)
     if not sk.is_cuda:
         return banded_compare_per_s_ref(sk, rk, rp)
     h, t = torch.empty_like(sk), torch.empty_like(sk)
@@ -353,6 +372,24 @@ def banded_window_sum(s_svb: torch.Tensor, s_payb: torch.Tensor,
     _launch("banded_window_sum", (s_svb, s_payb, r_svb, r_payb, ids, lo, hi,
                                   acc), ids.numel(), nsb, nrb, r, w)
     return acc
+
+
+def banded_window_per_s(s_svb: torch.Tensor, r_svb: torch.Tensor,
+                        r_payb: torch.Tensor, ids: torch.Tensor,
+                        lo: torch.Tensor, hi: torch.Tensor, r: int, w: int,
+                        h: torch.Tensor, t: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adds round r's chunk match counts to h and matched-rp sums to t
+    [S blocks, 128] at the S blocks `ids` (unique); returns (h, t)."""
+    nsb, nrb = _check_window({"s_svb": s_svb, "h": h, "t": t},
+                             {"r_svb": r_svb, "r_payb": r_payb}, ids, lo, hi,
+                             r, w)
+    if not ids.is_cuda:
+        return banded_window_per_s_ref(s_svb, r_svb, r_payb, ids, lo, hi, r, w,
+                                       h, t)
+    _launch("banded_window_per_s", (s_svb, r_svb, r_payb, ids, lo, hi, h, t),
+            ids.numel(), nsb, nrb, r, w)
+    return h, t
 
 
 def banded_window_first(s_svb: torch.Tensor, r_svb: torch.Tensor,

@@ -11,10 +11,15 @@ payload 0.
 
 Work items: the TPU kernel walks R tiles on a sequential grid and streams
 each tile's range in TS-row chunks. Here the host flattens the plan into one
-item per (R tile, S chunk) pair (`_items`, from the numpy plan), so a skewed
-tile with hundreds of chunks spreads over as many thread blocks. Sums wrap
-mod 2^32; SUM_s sp * SUM_r [eq] rp equals the TPU's SUM_r rp * SUM_s [eq] sp
-bit for bit.
+item per (R tile, S chunk) pair (`_items`, from the numpy plan), tile by
+tile; a thread block takes a few consecutive items, so a skewed tile with
+hundreds of chunks spreads over many blocks. Where the TPU kernel compares
+every R row of a tile with every S row of a chunk, the CUDA kernel builds a
+shared-memory hash table of the tile (1024 rows at a time) once for each
+run of its items in a block and looks each S row up in it, as the
+reference's join_partitioned_aggregate does. Sums wrap mod 2^32;
+SUM_s sp * SUM_r [eq] rp equals the TPU's SUM_r rp * SUM_s [eq] sp bit for
+bit, whatever the order of the rows.
 
 On CUDA tensors `probe_aggregate_ranges` launches the kernel (built with
 nvcc at first use) and raises if it cannot; on CPU tensors it runs the plain

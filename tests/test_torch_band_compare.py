@@ -211,7 +211,8 @@ def test_new_wrappers_reject_bad_inputs(name, bad):
 def test_reset_launches_zeroes_every_kernel():
     assert set(band_compare.LAUNCHES) == {
         "banded_compare_sum", "banded_compare_per_s", "banded_compare_first",
-        "banded_interval_select", "banded_window_sum", "banded_window_first"}
+        "banded_interval_select", "banded_window_sum", "banded_window_per_s",
+        "banded_window_first"}
     band_compare.LAUNCHES["banded_compare_first"] += 3
     band_compare.reset_launches()
     assert set(band_compare.LAUNCHES.values()) == {0}

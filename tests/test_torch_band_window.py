@@ -1,5 +1,6 @@
-"""The windowed entry points of kernels 1 and 3 (`banded_window_sum`,
-`banded_window_first` in the port's ops/band_compare.py) against the
+"""The windowed entry points of kernels 1, 2 and 3 (`banded_window_sum`,
+`banded_window_per_s`, `banded_window_first` in the port's
+ops/band_compare.py) against the
 chunk-array plain versions after the gathers, and against the JAX Pallas
 kernels on the same gathered arrays, run here in interpret mode as
 tests/test_band_join.py runs them. Inputs are made from a seed with numpy.
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from icde2019_gpu_join_tpu.ops import band_compare_pallas as P
+from icde2019_gpu_join_tpu.ops import band_join as J
 from icde2019_gpu_join_tpu_torch.ops import band_compare as B
 from icde2019_gpu_join_tpu_torch.ops import band_join as T
 
@@ -253,6 +255,8 @@ def test_empty_round_changes_nothing():
     B.banded_window_sum(t(s_sv), t(s_pay), t(r_sv), t(r_pay), ids, t(lo),
                         t(hi), 1, 2, acc)
     B.banded_window_first(t(s_sv), t(r_sv), ids, t(lo), t(hi), 1, 2, h, fm)
+    B.banded_window_per_s(t(s_sv), t(r_sv), t(r_pay), ids, t(lo), t(hi), 1, 2,
+                          h, fm)
     assert int(acc[0]) == 12345
     assert torch.equal(h, h0) and torch.equal(fm, fm0)
     assert B.LAUNCHES == before
@@ -280,6 +284,17 @@ def test_first_accumulates_into_its_outputs():
 
 # ---- the probes through the windowed entry points ---------------------------
 
+def _chunk_windows(r_sv, s_sv, w):
+    """The probe schedule's chunks with their windows spelled out, as the
+    probes gathered them before the windowed entry points: per chunk the S
+    block ids, the R block indices [n, w] (clamped) and whether each lies
+    inside its block's window."""
+    nrb = r_sv.shape[0] // LANES
+    lo, hi, chunks = T._probe_schedule(r_sv, s_sv, w)
+    for r, ids in chunks:
+        yield (ids, *B.window_plan(ids, lo, hi, r, w, nrb))
+
+
 @pytest.mark.parametrize("kind,w,seed", ENGINE_CASES)
 def test_probe_and_descriptors_equal_their_chunk_forms(kind, w, seed):
     """`banded_probe(..., "mul")` and `banded_match_descriptors` equal the
@@ -293,7 +308,7 @@ def test_probe_and_descriptors_equal_their_chunk_forms(kind, w, seed):
     want_h = torch.zeros((nsb, LANES), dtype=torch.int32)
     want_fm = torch.full((nsb, LANES), PAD, dtype=torch.int32)
     lane = torch.arange(LANES, dtype=torch.int32)
-    for ids, bidx, valid in T._probe_chunks(r_sv, s_sv, w):
+    for ids, bidx, valid in _chunk_windows(r_sv, s_sv, w):
         n = ids.numel()
         rp = B.gather_window(r_pay.view(-1, LANES), bidx, valid, 0)
         rk = r_sv.view(-1, LANES)[bidx.view(-1)].view(rp.shape)
@@ -334,12 +349,15 @@ def _valid_args(rng=None):
                 ids=torch.arange(s_sv.shape[0], dtype=torch.int64), lo=t(lo),
                 hi=t(hi), r=0, w=2, acc=torch.zeros(1, dtype=torch.int32),
                 h=torch.zeros(s_sv.shape, dtype=torch.int32),
+                t=torch.zeros(s_sv.shape, dtype=torch.int32),
                 fm=torch.full(s_sv.shape, PAD, dtype=torch.int32))
 
 
 _SUM_KEYS = ("s_svb", "s_payb", "r_svb", "r_payb", "ids", "lo", "hi", "r",
              "w", "acc")
 _FIRST_KEYS = ("s_svb", "r_svb", "ids", "lo", "hi", "r", "w", "h", "fm")
+_PER_S_KEYS = ("s_svb", "r_svb", "r_payb", "ids", "lo", "hi", "r", "w", "h",
+               "t")
 
 
 def _misaligned(x):
@@ -371,6 +389,9 @@ BAD = {
     "lo int64": _set("lo", lambda a: a["lo"].long()),
     "acc int64": _set("acc", lambda a: a["acc"].long()),
     "h int64": _set("h", lambda a: a["h"].long()),
+    "t int64": _set("t", lambda a: a["t"].long()),
+    "t misaligned": _set("t", lambda a: _misaligned(a["t"])),
+    "t other rows": _set("t", lambda a: a["t"][:-1].clone()),
     "s_svb misaligned": _set("s_svb", lambda a: _misaligned(a["s_svb"])),
     "s_payb misaligned": _set("s_payb", lambda a: _misaligned(a["s_payb"])),
     "r_svb misaligned": _set("r_svb", lambda a: _misaligned(a["r_svb"])),
@@ -393,6 +414,7 @@ BAD = {
     "hi on meta": _set("hi", lambda a: a["hi"].to("meta")),
 }
 WRAPPERS = {"sum": (B.banded_window_sum, _SUM_KEYS),
+            "per_s": (B.banded_window_per_s, _PER_S_KEYS),
             "first": (B.banded_window_first, _FIRST_KEYS)}
 
 
@@ -432,6 +454,231 @@ def test_cpu_tensors_add_no_launch():
     args = _valid_args()
     before = dict(B.LAUNCHES)
     B.banded_window_sum(*(args[k] for k in _SUM_KEYS))
+    B.banded_window_per_s(*(args[k] for k in _PER_S_KEYS))
     B.banded_window_first(*(args[k] for k in _FIRST_KEYS))
     assert B.LAUNCHES == before
-    assert {"banded_window_sum", "banded_window_first"} <= set(B.LAUNCHES)
+    assert {"banded_window_sum", "banded_window_per_s",
+            "banded_window_first"} <= set(B.LAUNCHES)
+
+
+# ---- kernel 2 windowed (`banded_window_per_s`) ---------------------------------
+
+def _wrap32(x) -> np.ndarray:
+    return (np.asarray(x, np.int64) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def _per_s_window_ref(s_sv, r_sv, r_pay, ids, lo, hi, r, w):
+    """The windowed plain version from zero accumulators: (h, t)."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    h = torch.zeros(s_sv.shape, dtype=torch.int32)
+    tt = torch.zeros_like(h)
+    B.banded_window_per_s_ref(t(s_sv), t(r_sv), t(r_pay),
+                              t(ids.astype(np.int64)), t(lo), t(hi), r, w, h,
+                              tt)
+    return h.numpy(), tt.numpy()
+
+
+def _per_s_scattered(hc, tc, ids, nsb):
+    h = np.zeros((nsb, LANES), np.int32)
+    t = np.zeros((nsb, LANES), np.int32)
+    h[ids], t[ids] = np.asarray(hc), np.asarray(tc)
+    return h, t
+
+
+def _per_s_chunk_ref(g, ids, nsb):
+    """The chunk plain version on the gathered, masked arrays."""
+    hc, tc = B.banded_compare_per_s_ref(torch.from_numpy(g["sk"]),
+                                        torch.from_numpy(g["rk_masked"]),
+                                        torch.from_numpy(g["rp"]))
+    return _per_s_scattered(hc.numpy(), tc.numpy(), ids, nsb)
+
+
+def _per_s_jax(g, ids, nsb):
+    """JAX's Pallas kernel (interpret mode) on the same gathered arrays."""
+    hc, tc = P.banded_compare_per_s(jnp.asarray(g["sk"]),
+                                    jnp.asarray(g["rk_masked"]),
+                                    jnp.asarray(g["rp"]), interpret=True)
+    return _per_s_scattered(hc, tc, ids, nsb)
+
+
+def _per_s_model(s_sv, r_sv, r_pay, ids, lo, hi, r, w):
+    """The CUDA kernel's arithmetic (window_per_s_kernel): only blocks
+    before hi are compared, a count and a payload add a match; the masked
+    blocks add 128 each to the count of the S rows whose key is the
+    sentinel, in one step, and nothing to t."""
+    nrb = r_sv.shape[0]
+    h = np.zeros(s_sv.shape, np.int64)
+    t = np.zeros(s_sv.shape, np.int64)
+    for i in ids:
+        base = int(lo[i]) + r * w
+        valid = min(max(int(hi[i]) - base, 0), w)
+        key = s_sv[i].astype(np.int64)
+        for k in range(valid):
+            blk = min(max(base + k, 0), nrb - 1)
+            eq = key[:, None] == r_sv[blk].astype(np.int64)[None, :]
+            h[i] += eq.sum(1)
+            t[i] += (eq * r_pay[blk].astype(np.int64)).sum(1)
+        if valid < w:
+            h[i][key == PAD] += LANES * (w - valid)
+    return _wrap32(h), _wrap32(t)
+
+
+def _equal_per_s(got, *wants):
+    for want in wants:
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind,w,seed", ENGINE_CASES)
+def test_windowed_per_s_on_the_engine_schedule(kind, w, seed, monkeypatch):
+    """Every chunk of the probe schedule: the windowed plain version = the
+    chunk plain version after the gathers = the kernel model; the first
+    chunk of round 0 and of the last round also = JAX's kernel."""
+    rng = np.random.RandomState(seed)
+    s_sv, _, r_sv, r_pay = _sorted_blocks(rng, kind, 1900, 2300)
+    nsb = s_sv.shape[0]
+    monkeypatch.setattr(T, "_CHUNK_BLOCKS", 5)
+    lo, hi, chunks = T._probe_schedule(torch.from_numpy(r_sv).view(-1),
+                                       torch.from_numpy(s_sv).view(-1), w)
+    lo, hi = lo.numpy(), hi.numpy()
+    chunks = [(r, ids.numpy()) for r, ids in chunks]
+    rounds = max(r for r, _ in chunks)
+    jax_chunks = {0: chunks[0][1],
+                  rounds: next(ids for r, ids in chunks if r == rounds)}
+    for r, ids in chunks:
+        args = (s_sv, r_sv, r_pay, ids, lo, hi, r, w)
+        got = _per_s_window_ref(*args)
+        g = _gathered(s_sv, s_sv, r_sv, r_pay, ids, lo, hi, r, w)
+        _equal_per_s(got, _per_s_chunk_ref(g, ids, nsb), _per_s_model(*args))
+        if jax_chunks.get(r) is ids:
+            _equal_per_s(got, _per_s_jax(g, ids, nsb))
+
+
+@pytest.mark.parametrize("w,r,seed", EDGE_CASES)
+def test_windowed_per_s_on_edge_windows(w, r, seed):
+    """Permuted ids over every S block, empty and clamped windows, S and R
+    pad rows: the windowed and chunk plain versions, JAX's kernel and the
+    kernel model agree, S pad rows included."""
+    rng = np.random.RandomState(100 * w + 10 * r + seed + 7)
+    s_sv, _, r_sv, r_pay, lo, hi = _edge_inputs(rng, w)
+    nsb = s_sv.shape[0]
+    ids = rng.permutation(nsb)
+    args = (s_sv, r_sv, r_pay, ids, lo, hi, r, w)
+    got = _per_s_window_ref(*args)
+    g = _gathered(s_sv, s_sv, r_sv, r_pay, ids, lo, hi, r, w)
+    _equal_per_s(got, _per_s_chunk_ref(g, ids, nsb), _per_s_jax(g, ids, nsb),
+                 _per_s_model(*args))
+    # masked columns and R pad rows matched the S pad rows
+    assert got[0][-1, 70:].min() > 0
+
+
+def test_windowed_per_s_sums_wrap():
+    """One key everywhere, full-range payloads: t wraps mod 2^32 and still
+    equals JAX's."""
+    rng = np.random.RandomState(8)
+    s_sv = np.zeros((6, LANES), np.int32)
+    r_sv = np.zeros((4, LANES), np.int32)
+    r_pay = _full(rng, (4, LANES))
+    lo, hi, ids = np.zeros(6, np.int32), np.full(6, 4, np.int32), np.arange(6)
+    args = (s_sv, r_sv, r_pay, ids, lo, hi, 0, 4)
+    got = _per_s_window_ref(*args)
+    g = _gathered(s_sv, s_sv, r_sv, r_pay, ids, lo, hi, 0, 4)
+    assert abs(int(g["rp"][0].astype(np.int64).sum())) >= 2**31
+    _equal_per_s(got, _per_s_jax(g, ids, 6), _per_s_model(*args))
+    assert (got[0] == 4 * LANES).all()
+
+
+def test_per_s_accumulates_into_its_outputs():
+    """h and t add to what the caller holds: two rounds over the same ids
+    give the sum of each."""
+    rng = np.random.RandomState(12)
+    s_sv, _, r_sv, r_pay, lo, hi = _edge_inputs(rng, 1)
+    t = torch.from_numpy
+    ids = t(rng.permutation(s_sv.shape[0]).astype(np.int64))
+    h = t(rng.randint(0, 9, s_sv.shape).astype(np.int32))
+    tt = t(_full(rng, s_sv.shape))
+    start = (h.clone(), tt.clone())
+    parts = []
+    for r in (0, 1):
+        hr, tr_ = torch.zeros_like(h), torch.zeros_like(h)
+        B.banded_window_per_s(t(s_sv), t(r_sv), t(r_pay), ids, t(lo), t(hi), r,
+                              1, hr, tr_)
+        parts.append((hr, tr_))
+        B.banded_window_per_s(t(s_sv), t(r_sv), t(r_pay), ids, t(lo), t(hi), r,
+                              1, h, tt)
+    for i, got in enumerate((h, tt)):
+        want = start[i].long() + parts[0][i].long() + parts[1][i].long()
+        np.testing.assert_array_equal(got.numpy(), _wrap32(want.numpy()))
+
+
+def _engine_tables(rng, kind, n_r=1900, n_s=2300):
+    """Raw relations as `_sorted_blocks` makes them: runs of R keys against
+    a Zipf S, or PK-FK; full-range payloads."""
+    if kind == "zipf":
+        rk = rng.randint(0, 48, n_r).astype(np.int32)
+        sk = np.minimum(rng.zipf(1.4, n_s) - 1, 60).astype(np.int32)
+    else:
+        rk = rng.permutation(4 * n_r)[:n_r].astype(np.int32)
+        sk = rk[rng.randint(0, n_r, n_s)]
+    return rk, _full(rng, n_r), sk, _full(rng, n_s)
+
+
+@pytest.mark.parametrize("kind,w,seed", ENGINE_CASES)
+def test_probe_per_s_and_add_equal_their_chunk_forms(kind, w, seed):
+    """`banded_probe_per_s` and `banded_probe(..., "add")` equal the chunk
+    plain version over the gathered chunks, the form they had before the
+    windowed entry point, S pad rows included."""
+    rng = np.random.RandomState(seed + 20)
+    s_sv, s_pay, r_sv, r_pay = (torch.from_numpy(x).view(-1) for x in
+                                _sorted_blocks(rng, kind, 1900, 2300))
+    nsb = s_sv.shape[0] // LANES
+    want_h = torch.zeros((nsb, LANES), dtype=torch.int32)
+    want_t = torch.zeros_like(want_h)
+    for ids, bidx, valid in _chunk_windows(r_sv, s_sv, w):
+        hc, tc = B.banded_compare_per_s_ref(
+            s_sv.view(-1, LANES)[ids],
+            B.gather_window(r_sv.view(-1, LANES), bidx, valid, PAD),
+            B.gather_window(r_pay.view(-1, LANES), bidx, valid, 0))
+        want_h.index_add_(0, ids, hc)
+        want_t.index_add_(0, ids, tc)
+    h, t = T.banded_probe_per_s(r_sv, r_pay, s_sv, w)
+    assert torch.equal(h, want_h.view(-1)) and torch.equal(t, want_t.view(-1))
+    total = (want_t.view(-1).long().sum()
+             + (want_h.view(-1).long() * s_pay.long()).sum())
+    got = T.banded_probe(r_sv, r_pay, s_sv, s_pay, w, "add")
+    assert got.dtype == torch.int32 and got.dim() == 0
+    assert int(got) == int(_wrap32([int(total) & 0xFFFFFFFF])[0])
+
+
+@pytest.mark.parametrize("kind,w,seed", ENGINE_CASES)
+def test_probe_per_s_matches_jax_with_pad_rows(kind, w, seed):
+    """The port's per-S probe against JAX's on the same sorted inputs: t on
+    every row and h on every real row bit for bit, the S pad rows of the
+    last block included for t. A pad row's h counts the sentinel columns
+    its block meets: the port's its own rounds', JAX's also those of the
+    rounds its block sits out inside a chunk that still has active rows
+    (all W blocks masked), so JAX's exceeds the port's by whole rounds."""
+    rng = np.random.RandomState(seed + 30)
+    s_sv, _, r_sv, r_pay = (x.reshape(-1) for x in
+                            _sorted_blocks(rng, kind, 1900, 2300))
+    jh, jt = J.banded_probe_per_s(jnp.asarray(r_sv), jnp.asarray(r_pay),
+                                  jnp.asarray(s_sv), window_blocks=w)
+    th, tt = T.banded_probe_per_s(*map(torch.from_numpy, (r_sv, r_pay, s_sv)),
+                                  w)
+    n = 2300
+    assert (s_sv[n:] == PAD).all() and th[n:].min() > 0
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(th[:n].numpy(), np.asarray(jh)[:n])
+    extra = np.asarray(jh)[n:].astype(np.int64) - th[n:].numpy()
+    assert (extra >= 0).all() and (extra % (LANES * w) == 0).all()
+
+
+@pytest.mark.parametrize("kind,w,seed", ENGINE_CASES)
+def test_late_aggregate_matches_jax_on_engine_relations(kind, w, seed):
+    rng = np.random.RandomState(seed + 40)
+    rk, rp, sk, sp = _engine_tables(rng, kind)
+    got = T.banded_join_late_aggregate(*map(torch.from_numpy, (rk, rp, sk, sp)),
+                                       window_blocks=w)
+    want = J.banded_join_late_aggregate(*map(jnp.asarray, (rk, rp, sk, sp)),
+                                        window_blocks=w)
+    assert int(got) == int(want)
