@@ -71,8 +71,16 @@ run of all phases can pass. The phases:
              24 against the plain version, with the rates;
   probes     the ladder of construct probes (kernel 10,
              `benchmarks/construct_probes.py` of the port) through
-             `run_probes`: every probe ok, with its time, and the time of an
-             empty kernel through the same launcher (a launch's floor);
+             `run_probes`: every probe ok; every probe kernel held against
+             its plain version at the edges (`hold_edges`: windows at the
+             first and last rows and overlapping, a fully masked and an
+             unmasked tile, equal and extreme keys); each kernel's device
+             time alone beside its bound and the parent's recorded time;
+             each ladder kernel's form (CTAs a problem, cluster size,
+             `cudaOccupancyMaxActiveClusters`); the
+             library call beside concat_only (`torch.cat`) and
+             transpose_only (`a + 1`), and an empty launch's device time
+             (a launch's floor);
   sort tools `bench_packed` and `bench_full` at 2^24 and `merge_fix_validate`
              at 2^18 and 2^24 through their entry points, every check true,
              window 32768 refused;
@@ -212,7 +220,10 @@ the distributed legs and the surface calls gave it (`at_distributed`,
 the largest and the smallest chunk of each width, `timed`; their errors
 are folded into `max_abs_err`). The probe ladder's entry carries, beside its bound, the
 floor its launches set (`bound_launches_ms`): 13 x the device time of one
-empty launch (CUDA events around 100 of them back to back).
+empty launch (CUDA events around 100 of them back to back); its `ms` is
+the sum of the 13 probe kernels' device times alone (each the mean of 50
+launches behind a device sleep), `host_ms` the sum of their wrappers' times
+by the host's events.
 Kernel 7's entry also carries its plan kernel's time
 (`plan_ms`, beside the torch planner's wall time) and launches
 (`plan_launches`) and window 4096 at both levels. Kernel 5's `ms` is its
@@ -224,8 +235,11 @@ the bound the TPU design's TR x TS compares an item would have
 one with its launches on the config-3 pipeline (and `launches_late`), the
 chunk entry with its launches on the fast path's extraction; both carry
 `timed`, their times at each of `KERNEL2_SHAPES` (the chunk entry also at
-the 2^24 fast path's extraction, (RING / 128, 6)). The probe ladder is one entry: its launches are the probe
-kernels run, its times their sums, with a map per probe. Last the result line `{"ok": true, "device": {...}}`.
+the 2^24 fast path's extraction, (RING / 128, 6)). The probe ladder is
+one entry: its launches are the probe kernels run, its times their sums,
+with a map per probe (`probe_ms`, `probe_bound_ms`, `probe_library_ms`)
+and each ladder kernel's `forms`. Last the result line
+`{"ok": true, "device": {...}}`.
 Any failure raises, so the exit code is not 0 and no result line is
 printed; that includes a machine without CUDA.
 """
@@ -337,22 +351,7 @@ KERNEL_OPS = {"banded_compare_sum": 2, "banded_compare_per_s": 3,
               "banded_window_first": 3,
               "probe_aggregate_ranges": 4, "merge_levels_vmem": 5,
               "merge_level_hbm": 5, "sort_tiles": 5, "stage_reps": 5,
-              "construct_probes": 5}
-# The exchanges of each construct probe: (stages, exchanges a stage).
-PROBE_EXCHANGES = {
-    "transpose_only": (0, 0), "concat_only": (0, 0), "min_dma": (0, 0),
-    "lane_64": (1, 1 << 13), "lane_16": (1, 1 << 13), "lane_1": (1, 1 << 13),
-    "dirmask_stage": (1, 1 << 13), "sublane_ladder": (7, 1 << 13),
-    "lane_ladder_T": (7, 1 << 13), "concat_merge": (14, 1 << 14),
-    "min_dma_compute": (14, 1 << 14), "full_merge_T": (15, 1 << 14),
-    "merge_T_dm": (15, 1 << 14)}
-# The int32 elements each construct probe reads and writes.
-PROBE_ELEMENTS = {
-    "transpose_only": 2 << 14, "concat_only": 2 << 14, "min_dma": 2 << 15,
-    "lane_64": 3 << 14, "lane_16": 3 << 14, "lane_1": 3 << 14,
-    "dirmask_stage": 3 << 14, "sublane_ladder": 3 << 14,
-    "lane_ladder_T": 3 << 14, "concat_merge": 4 << 14,
-    "min_dma_compute": 2 << 15, "full_merge_T": 3 << 14, "merge_T_dm": 3 << 14}
+              "construct_probes": construct_probes.OPS_PER_EXCHANGE}
 # "hbm_bytes_per_s", "int_ops_per_s" (`utils/timing`'s figures) and "line",
 # set by phase_report
 CARD = {}
@@ -369,6 +368,27 @@ DIST_THREAD_SCALE = 22
 DIST_HOT = 0.3
 # the empty launches timed back to back for the probe ladder's bound
 EMPTY_LAUNCHES = 100
+# Each construct probe kernel's device time alone in its parent's design
+# (the probe kernels before they were redesigned around TMA, registers and
+# clusters: one 1024-thread block a probe, every stage a trip through shared
+# memory), the mean of the parent's two runs of `construct_probes --kernels`
+# on a checkout of that design, in turns with the new kernels in one chip
+# call, on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, section 6, kernel
+# 10): printed beside this run's times, not measured here.
+PARENT_PROBE_MS = {
+    "transpose_only": 0.0072992,
+    "merge_T_dm": 0.0657325,
+    "lane_ladder_T": 0.0244416,
+    "full_merge_T": 0.0648048,
+    "concat_only": 0.0043066,
+    "lane_64": 0.0068474,
+    "lane_16": 0.007857,
+    "lane_1": 0.007832,
+    "sublane_ladder": 0.0133722,
+    "dirmask_stage": 0.0067728,
+    "concat_merge": 0.0252125,
+    "min_dma": 0.002896,
+    "min_dma_compute": 0.0245328}
 # the surface: the reference's own CLI invocation, the bench, run_configs
 SURFACE_CLI = ["-a", "HJC", "-R", "1000000", "-S", "16000000"]
 SURFACE_BENCH_SCALE = 27
@@ -401,27 +421,10 @@ COUNTED = (band_compare, probe_ranges, merge, experimental_sort,
            merge_sort_bench, construct_probes)
 
 
-# device clock cycles the card sleeps before a timed run, while the host
-# queues its calls: 10 ms at 2 GHz
-HOLD_CYCLES = 20_000_000
-
-
 def _time_ms(fn, reps: int) -> float:
-    """Mean device time of one call, by CUDA events over `reps` calls. The
-    card first sleeps HOLD_CYCLES while the host queues them, so that a call
-    shorter than its launch's host work is timed on the card, not by the
-    host."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean device time of one call over `reps` calls queued behind a
+    device sleep (`utils.timing.queued_ms`)."""
+    return timing.queued_ms(fn, DEVICE, reps)
 
 
 def _best_s(fn, reps: int = REPS):
@@ -1389,8 +1392,10 @@ def phase_kernel_stage() -> tuple:
 
 
 def phase_probes() -> tuple:
-    """The whole ladder of construct probes through its entry point. Returns
-    (stats of the probe kernels, their launches on that run)."""
+    """The whole ladder of construct probes through its entry point, every
+    probe kernel at the edges against its plain version, and each kernel's
+    device time alone beside its bound. Returns (stats of the probe kernels,
+    their launches on the ladder's run)."""
     cp = construct_probes
     lines, launches = _launched(lambda: cp.run_probes(device=DEVICE))
     _require(launches, "construct probes", "construct_probes",
@@ -1400,10 +1405,12 @@ def phase_probes() -> tuple:
         raise AssertionError(f"construct probes failed: {bad or lines}")
     by_name = {line["probe"]: line for line in lines}
     mine = {name: by_name[name] for name in cp.CONSTRUCTS}
+    edges = cp.hold_edges(DEVICE)
+    forms = {name: cp.form(name) for name in cp.LADDERS}
     ops = sum(stages * exchanges * KERNEL_OPS["construct_probes"]
-              for stages, exchanges in PROBE_EXCHANGES.values())
-    # what of a probe's time is its launch: an empty kernel through the same
-    # launcher, timed as a probe is
+              for stages, exchanges in cp.PROBE_EXCHANGES.values())
+    # what of a probe's wrapper time is its launch: an empty kernel through
+    # the same launcher, timed as a probe's `ms` is
     floor_ms = cp.launch_floor_ms(DEVICE)
     # the device time of one empty launch: CUDA events around
     # EMPTY_LAUNCHES of them back to back. The ladder launches one kernel a
@@ -1411,33 +1418,65 @@ def phase_probes() -> tuple:
     block = torch.zeros((cp.BLOCK_ROWS, cp.LANES), dtype=torch.int32,
                         device=DEVICE)
     empty_ms = _time_ms(lambda: cp.empty_launch(block), EMPTY_LAUNCHES)
+    # the one PyTorch call that computes a probe's function: torch.cat for
+    # concat_only, and a.T.T + 1 is a + 1
+    a, b = cp._blocks(cp.WROW, 2, DEVICE, 0)
+    library = {"concat_only": _time_ms(lambda: torch.cat([a, b]),
+                                       cp.DEVICE_REPS),
+               "transpose_only": _time_ms(lambda: block + 1, cp.DEVICE_REPS)}
     # `bound_ms` stays the bytes' or the operations' time, as for every
     # kernel; the floor the launches set is `bound_launches_ms` beside it
-    bound = _bound(4 * sum(PROBE_ELEMENTS.values()), ops)
+    bound = _bound(4 * sum(cp.PROBE_ELEMENTS.values()), ops)
     launches_ms = len(mine) * empty_ms
     stats = {"max_abs_err": 0,
-             "ms": sum(line["ms"] for line in mine.values()),
+             "ms": sum(line["device_ms"] for line in mine.values()),
+             "host_ms": sum(line["ms"] for line in mine.values()),
              "plain_ms": sum(line["plain_ms"] for line in mine.values()),
              **bound, "bound_launches_ms": launches_ms,
              "empty_launch_device_ms": empty_ms,
              "probes": len(mine), "launch_floor_ms": floor_ms,
-             "probe_ms": {name: line["ms"] for name, line in by_name.items()},
+             "probe_ms": {name: line["device_ms"]
+                          for name, line in by_name.items()},
+             "probe_host_ms": {name: line["ms"]
+                               for name, line in by_name.items()},
              "probe_plain_ms": {name: line["plain_ms"]
-                                for name, line in by_name.items()}}
-    print(f"[probes] {len(lines)} probes ok, each equal to its plain version; "
-          f"ms, kernel / plain: " + ", ".join(
-              f"{n} {l['ms']:.4f} / {l['plain_ms']:.3f}" for n, l in by_name.items())
-          + f"; the {len(mine)} probe kernels together {stats['ms']:.4f} ms, "
-          f"bound {stats['bound_ms']:.6f} ms by {stats['bound_by']} ("
-          f"{4 * sum(PROBE_ELEMENTS.values())} bytes, {ops} operations); "
-          f"the floor of its launches {launches_ms:.4f} ms ({len(mine)} x the "
-          f"device time of an empty launch, {empty_ms:.4f} ms by CUDA events "
-          f"around {EMPTY_LAUNCHES} back to back), "
-          f"{launches_ms / stats['ms']:.0%} of the ladder's time; an empty "
-          f"kernel through the same launcher, by the same clock (best of 25): "
-          f"{floor_ms:.4f} ms a launch, {len(mine) * floor_ms:.4f} ms for "
-          f"{len(mine)} ({len(mine) * floor_ms / stats['ms']:.0%} of the "
-          f"probes' time); launches {launches}")
+                                for name, line in by_name.items()},
+             "probe_bound_ms": {name: line["bound_ms"]
+                                for name, line in mine.items()},
+             "probe_library_ms": library, "forms": forms,
+             "edges_held": len(edges)}
+    form = lambda name: (
+        f", {forms[name]['ctas']} CTAs a problem, "
+        + (f"a cluster of {forms[name]['cluster']} "
+           f"(cudaOccupancyMaxActiveClusters "
+           f"{forms[name]['max_active_clusters']})"
+           if forms[name]["cluster"] > 1 else "no cluster")
+        if name in forms else "")
+    print(f"[probes] {len(lines)} probes ok, each equal to its plain version, "
+          f"and {len(edges)} edge cases ({'; '.join(edges)}). Each probe "
+          f"kernel alone (ms by CUDA events behind a device sleep, the "
+          f"parent's recorded beside it), its bound and its form: "
+          + ", ".join(
+              f"{n} {l['device_ms']:.5f}, parent {PARENT_PROBE_MS[n]:.5f}, "
+              f"bound {l['bound_ms']:.6f}{form(n)}" for n, l in mine.items())
+          + f"; the {len(mine)} together {stats['ms']:.5f} ms (parent "
+          f"{sum(PARENT_PROBE_MS.values()):.5f}, recorded), bound "
+          f"{stats['bound_ms']:.6f} ms by {stats['bound_by']} "
+          f"({4 * sum(cp.PROBE_ELEMENTS.values())} bytes, {ops} operations); "
+          f"the floor of its launches {launches_ms:.4f} ms ({len(mine)} x "
+          f"the device time of an empty launch, {empty_ms:.4f} ms by CUDA "
+          f"events around {EMPTY_LAUNCHES} back to back; aim 2 x: "
+          f"{2 * launches_ms:.4f}); torch.cat alone "
+          f"{library['concat_only']:.5f} ms beside concat_only "
+          f"{mine['concat_only']['device_ms']:.5f}, a + 1 alone "
+          f"{library['transpose_only']:.5f} beside transpose_only "
+          f"{mine['transpose_only']['device_ms']:.5f}; the wrappers by "
+          f"the host's events: {stats['host_ms']:.4f} ms for the "
+          f"{len(mine)}, an empty kernel through the same launcher "
+          f"{floor_ms:.4f} ms a launch; other probes alone: " + ", ".join(
+              f"{n} {l['device_ms']:.4f}" for n, l in by_name.items()
+              if n not in mine)
+          + f"; launches {launches}")
     return stats, launches["construct_probes"]
 
 

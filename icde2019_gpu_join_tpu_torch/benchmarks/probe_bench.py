@@ -484,9 +484,9 @@ def ranges(reps: int, device, config1=CONFIG1, zipf_log2n: int = 22,
                       "rows": int(np.unique(tile).size * RANGE_TILE
                                   + tile.size * RANGE_TILE),
                       "max_chunks": int(s_nch.max()),
-                      "kernel_ms": _mean_ms(kernel5_launch(cols, s_start,
-                                                           s_nch), device, 10),
-                      "wrapper_ms": _mean_ms(fn, device, 10),
+                      "kernel_ms": timing.queued_ms(
+                          kernel5_launch(cols, s_start, s_nch), device, 10),
+                      "wrapper_ms": timing.queued_ms(fn, device, 10),
                       "bound_ms": nbytes / (gbps * 1e9) * 1e3,
                       "bound_by": "bytes", "device": str(device), **extra})
 
@@ -570,28 +570,6 @@ def _window_args(gen, ch: int, w: int, which: str, device):
                  for a in args)
 
 
-HOLD_CYCLES = 20_000_000   # 10 ms of device clock at 2 GHz
-
-
-def _mean_ms(fn, device, reps: int) -> float:
-    """Mean time of one call over `reps` calls queued back to back after a
-    warm-up, by two events around them all. On a card, the card sleeps
-    HOLD_CYCLES while the host queues the calls, so that a kernel shorter
-    than its launch's host work is timed on the card (as `chip_smoke.py`
-    times a kernel)."""
-    fn()
-    _sync(device)
-    start, end = _event(device), _event(device)
-    if torch.device(device).type == "cuda":
-        torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    _sync(device)
-    return start.elapsed_time(end) / reps
-
-
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -617,7 +595,7 @@ def isolated(device, shapes=None, reps: int = 20) -> List[dict]:
         for ch, w in at:
             make = _window_args if windowed else _chunk_args
             args = make(gen, ch, w, which, device)
-            ms = _mean_ms(lambda: fn(*args), device, reps)
+            ms = timing.queued_ms(lambda: fn(*args), device, reps)
             pairs = ch * LANES * w * LANES
             if windowed:   # S rows, R rows, ids, lo, hi; outputs in and out
                 s_rows = 2 if which == "sum" else 1

@@ -196,6 +196,35 @@ def best_ms(fn, device, reps: int = 5) -> float:
     return best
 
 
+# device clock cycles the card sleeps while the host queues timed calls:
+# 10 ms at 2 GHz
+HOLD_CYCLES = 20_000_000
+
+
+def queued_ms(fn, device, reps: int) -> float:
+    """Mean time of one call of fn over `reps` calls queued back to back
+    after a warm-up, by two events around them all. On a card the card first
+    sleeps HOLD_CYCLES while the host queues the calls, so that a call
+    shorter than its launch's host work is timed on the card and not by the
+    host; on the CPU the host clock times them."""
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
 def ref_throughput_mbps(n_r: int, n_s: int, seconds: float) -> float:
     """The reference's headline metric: 2*(|R|+|S|)*4 bytes / t in MB/s
     (src/hash_join_clustered_probe.cu:938-940)."""
