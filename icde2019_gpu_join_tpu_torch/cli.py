@@ -4,7 +4,8 @@ Reference: ./bench -b 7 -a HJC -S <n> -R <n> [-s skew] [--non-unique]
 [--full-range] [-x/-y multipliers] [-k/-l filenames] [--file]
 (parseInputArgs, src/main.cu:434-557; dispatch :264-301). Port of
 `icde2019_gpu_join_tpu/cli.py`: the same flags, datasets and printed lines
-(the result count and per-phase throughput), plus --json.
+(the result count and per-phase throughput), plus --json, whose report
+also holds the timed call's counts (`JoinResult.counts`).
 
 Usage: python -m icde2019_gpu_join_tpu_torch.cli -b 7 -a HJC -R 1000000 -S 16000000
 """
@@ -143,7 +144,9 @@ def main(argv=None, device="cuda"):
     print(f"Join throughput is {mbps(t_join):.2f} MB/s")
     print(f"Total throughput is {mbps(dt):.2f} MB/s")
     if args.json:
-        print(json.dumps(tp.report({"result": result, "elapsed_s": dt})))
+        # the timed call's counters (`JoinResult.counts`) beside its phases
+        print(json.dumps(tp.report({"result": result, "elapsed_s": dt,
+                                    "counts": res.counts})))
     return 0
 
 

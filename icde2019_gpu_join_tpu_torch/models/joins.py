@@ -9,7 +9,8 @@ reference's orchestrator layer (src/hash_join_clustered_probe.cu):
 
 `ClusteredJoin` has `aggregate`, `count`, `materialize` and
 `late_aggregate`, with every `probe_mode` routed as the JAX engine routes
-it:
+it (each call one `queries` in `ops/_launches.EVENTS`, its counts on the
+result, and its read of the answer a `tpujoin.sync` span):
 
   * "auto" / "banded": the banded sort-merge probe (ops/band_join.py);
   * "pallas": radix-partition both sides, plan each R tile's S range on the
@@ -34,11 +35,13 @@ the partitions' two, runs under `config.sort_impl` ("lax" when unset; see
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
+from icde2019_gpu_join_tpu_torch.ops import _launches, band_compare, merge
 from icde2019_gpu_join_tpu_torch.ops import probe as probe_ops
 from icde2019_gpu_join_tpu_torch.ops import probe_ranges
 from icde2019_gpu_join_tpu_torch.ops.band_join import (
@@ -55,6 +58,7 @@ from icde2019_gpu_join_tpu_torch.ops.join_sorted import (
 )
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.relation import Relation
+from icde2019_gpu_join_tpu_torch.utils import profiling
 from icde2019_gpu_join_tpu_torch.utils.timing import PhaseTimer
 
 PROBE_MODES = ("auto", "banded", "pallas", "blocked", "sort_merge", "perfect")
@@ -67,6 +71,35 @@ class JoinResult:
     count: Optional[int] = None
     pairs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     timer: Optional[PhaseTimer] = None
+    # what the call counted (`ClusteredJoin`): `_launches.EVENTS` and the
+    # kernel launches of the engine's wrappers, by name
+    counts: Optional[Dict[str, int]] = None
+
+
+# the counters a `ClusteredJoin` call reports on its result
+_COUNTERS = (_launches.EVENTS, band_compare.LAUNCHES, merge.LAUNCHES,
+             probe_ranges.LAUNCHES)
+
+
+def _counted(method):
+    """A public call of the engine: one more `queries`, and the call's
+    counts on its result, the difference of the counters across the call.
+    Calls on other threads meanwhile would add theirs."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        before = _launches.snapshot(*_COUNTERS)
+        _launches.count(_launches.EVENTS, "queries")
+        res = method(self, *args, **kwargs)
+        after = _launches.snapshot(*_COUNTERS)
+        res.counts = {name: n - before[name] for name, n in after.items()}
+        return res
+    return call
+
+
+def _read(answer: torch.Tensor) -> int:
+    """The host's read of a 0-d answer: a wait on the device."""
+    with profiling.host_wait():
+        return int(answer)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -137,6 +170,7 @@ class ClusteredJoin:
                 cfg.probe_tile_r, cfg.probe_tile_s)
         return pr, ps, plan, plan.as_device(self.device)
 
+    @_counted
     def aggregate(self, r: Relation, s: Relation) -> JoinResult:
         """SUM(Pr*Ps) over matches, int32 wraparound."""
         self._check(r, s)
@@ -150,12 +184,12 @@ class ClusteredJoin:
                     window_blocks=self.config.band_window_blocks,
                     sort_impl=self.sort_impl)
                 out["result"] = agg
-            return JoinResult(aggregate=int(agg), timer=timer)
+            return JoinResult(aggregate=_read(agg), timer=timer)
         if mode == "sort_merge":
             with timer.phase("join", bytes_moved=8 * nrows, rows=nrows) as out:
                 agg = sort_merge_aggregate(r.keys, r.payload, s.keys, s.payload)
                 out["result"] = agg
-            return JoinResult(aggregate=int(agg), timer=timer)
+            return JoinResult(aggregate=_read(agg), timer=timer)
         if mode == "pallas":
             return self._aggregate_ranges(r, s, timer)
         pr, ps, plan, dev_plan = self._partition_and_plan(r, s, timer)
@@ -164,7 +198,7 @@ class ClusteredJoin:
                 pr.keys, pr.payload, ps.keys, ps.payload, *dev_plan,
                 tile_r=plan.tile_r, tile_s=plan.tile_s)
             out["result"] = agg
-        return JoinResult(aggregate=int(agg), timer=timer)
+        return JoinResult(aggregate=_read(agg), timer=timer)
 
     def _aggregate_ranges(self, r: Relation, s: Relation,
                           timer: PhaseTimer) -> JoinResult:
@@ -185,8 +219,9 @@ class ClusteredJoin:
             agg = probe_ranges.probe_aggregate_ranges(
                 rk, rp, sk, sp, s_start, s_nch, tile_r=tile_r, tile_s=tile_s)
             out["result"] = agg
-        return JoinResult(aggregate=int(agg), timer=timer)
+        return JoinResult(aggregate=_read(agg), timer=timer)
 
+    @_counted
     def count(self, r: Relation, s: Relation) -> JoinResult:
         """Number of matching pairs. The banded modes return it mod 2^32 as
         an unsigned value; the others return JAX's int32 sum (x64 off) as
@@ -200,20 +235,21 @@ class ClusteredJoin:
                     r.keys, s.keys, window_blocks=self.config.band_window_blocks,
                     sort_impl=self.sort_impl)
                 out["result"] = c
-            return JoinResult(count=int(c) & 0xFFFFFFFF, timer=timer)
+            return JoinResult(count=_read(c) & 0xFFFFFFFF, timer=timer)
         if mode == "sort_merge":
             with timer.phase("join") as out:
                 c = sort_merge_count(r.keys, s.keys)
                 out["result"] = c
-            return JoinResult(count=int(c), timer=timer)
+            return JoinResult(count=_read(c), timer=timer)
         pr, ps, plan, dev_plan = self._partition_and_plan(r, s, timer)
         with timer.phase("join") as out:
             c = probe_ops.blocked_probe_count(
                 pr.keys, ps.keys, *dev_plan,
                 tile_r=plan.tile_r, tile_s=plan.tile_s)
             out["result"] = c
-        return JoinResult(count=int(c), timer=timer)
+        return JoinResult(count=_read(c), timer=timer)
 
+    @_counted
     def materialize(self, r: Relation, s: Relation,
                     capacity: Optional[int] = None) -> JoinResult:
         """Matched (Pr, Ps) pairs in a ring buffer of `capacity` pairs
@@ -230,7 +266,7 @@ class ClusteredJoin:
                     window_blocks=self.config.band_window_blocks,
                     sort_impl=self.sort_impl)
                 out["result"] = (out_r, out_s)
-            return JoinResult(count=int(total) & 0xFFFFFFFF,
+            return JoinResult(count=_read(total) & 0xFFFFFFFF,
                               pairs=(out_r, out_s), timer=timer)
         pr, ps, plan, dev_plan = self._partition_and_plan(r, s, timer)
         with timer.phase("join") as out:
@@ -239,13 +275,14 @@ class ClusteredJoin:
                 tile_r=plan.tile_r, tile_s=plan.tile_s)
             csum = torch.cumsum(item_counts, 0)
             base = wrap_i32(csum - item_counts)
-            total = int(wrap_i32(csum[-1]))
+            total = _read(wrap_i32(csum[-1]))
             out_r, out_s = probe_ops.blocked_probe_materialize(
                 pr.keys, pr.payload, ps.keys, ps.payload, *dev_plan,
                 base, capacity, tile_r=plan.tile_r, tile_s=plan.tile_s)
             out["result"] = (out_r, out_s)
         return JoinResult(count=total, pairs=(out_r, out_s), timer=timer)
 
+    @_counted
     def late_aggregate(self, r: Relation, s: Relation, r_cols: torch.Tensor,
                        s_cols: torch.Tensor) -> JoinResult:
         """Late materialization: payloads are row ids; the extra int32
@@ -263,7 +300,7 @@ class ClusteredJoin:
                     window_blocks=self.config.band_window_blocks,
                     sort_impl=self.sort_impl)
                 out["result"] = agg
-            return JoinResult(aggregate=int(agg), timer=timer)
+            return JoinResult(aggregate=_read(agg), timer=timer)
         pr, ps, plan, dev_plan = self._partition_and_plan(r, s, timer)
         with timer.phase("join") as out:
             # column sums aligned to the partitioned order
@@ -272,7 +309,7 @@ class ClusteredJoin:
                 ps.keys, _row_colsums(s_cols, ps.payload), *dev_plan,
                 tile_r=plan.tile_r, tile_s=plan.tile_s)
             out["result"] = agg
-        return JoinResult(aggregate=int(agg), timer=timer)
+        return JoinResult(aggregate=_read(agg), timer=timer)
 
 
 _HOST_PLACEMENTS = ("host", "pinned_host", "unpinned_host")

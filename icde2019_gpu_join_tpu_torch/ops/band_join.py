@@ -24,6 +24,11 @@ inverse-permutation scatter have no counterpart.
 
 Aggregates are SUM with int32 wraparound (src/join-primitives.cu:1052-1092);
 they do not depend on how the S blocks are ordered or chunked.
+
+Spans (`utils/profiling`): `tpujoin.sort` a side, `tpujoin.probe` a probe
+call with its `tpujoin.windows`, `tpujoin.extract` materialize's extraction,
+`tpujoin.sync` each host read; `ops/_launches.EVENTS["probe_rounds"]` counts
+the rounds each schedule walks.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from icde2019_gpu_join_tpu_torch.ops import _launches
 from icde2019_gpu_join_tpu_torch.ops.band_compare import (
     INT32_MAX,
     R_PAD_SV as _R_PAD_SV,
@@ -47,6 +53,7 @@ from icde2019_gpu_join_tpu_torch.ops.merge import (
     packed_sort_pairs,
     torch_sort_pairs,
 )
+from icde2019_gpu_join_tpu_torch.utils import profiling
 
 _BLK = 128
 
@@ -104,8 +111,9 @@ def sort_by_key(keys: torch.Tensor, pay: torch.Tensor,
                 sort_impl: Optional[str] = None):
     """Sort (keys, pay) by uint32 key order; returns 128-padded tensors of
     (sortval, payload)."""
-    keys, pay = _pad_sorted_input(keys, pay)
-    return sort_pairs(rotate_keys(keys, 0, 0), pay, sort_impl)
+    with profiling.annotate("tpujoin.sort"):
+        keys, pay = _pad_sorted_input(keys, pay)
+        return sort_pairs(rotate_keys(keys, 0, 0), pay, sort_impl)
 
 
 def _ranks_of_sorted_probes(a: torch.Tensor, b: torch.Tensor,
@@ -142,11 +150,14 @@ def block_windows(r_sv: torch.Tensor, s_sv: torch.Tensor
 
     R block j can contain a match for S block b iff
     r_bmax[j] >= s_bmin[b] and r_bmin[j] <= s_bmax[b]."""
-    r2 = r_sv.view(-1, _BLK)
-    s2 = s_sv.view(-1, _BLK)
-    lo = _ranks_of_sorted_probes(r2.amax(1), s2.amin(1), a_first_on_ties=False)
-    hi = _ranks_of_sorted_probes(r2.amin(1), s2.amax(1), a_first_on_ties=True)
-    return lo, torch.maximum(hi, lo)
+    with profiling.annotate("tpujoin.windows"):
+        r2 = r_sv.view(-1, _BLK)
+        s2 = s_sv.view(-1, _BLK)
+        lo = _ranks_of_sorted_probes(r2.amax(1), s2.amin(1),
+                                     a_first_on_ties=False)
+        hi = _ranks_of_sorted_probes(r2.amin(1), s2.amax(1),
+                                     a_first_on_ties=True)
+        return lo, torch.maximum(hi, lo)
 
 
 def _probe_schedule(r_sv: torch.Tensor, s_sv: torch.Tensor, w: int):
@@ -163,7 +174,9 @@ def _probe_schedule(r_sv: torch.Tensor, s_sv: torch.Tensor, w: int):
     nrounds = (hi - lo + (w - 1)) // w
     _, bid_s = torch.sort(nrounds, descending=True)
     # one host read: blocks with exactly k rounds, for every k
-    hist = torch.bincount(nrounds).tolist()
+    with profiling.host_wait():
+        hist = torch.bincount(nrounds).tolist()
+    _launches.count(_launches.EVENTS, "probe_rounds", len(hist) - 1)
 
     def chunks():
         done = 0
@@ -191,20 +204,21 @@ def banded_probe(r_sv: torch.Tensor, r_pay: torch.Tensor,
     as in JAX."""
     if mode not in ("mul", "add"):
         raise ValueError(f"unknown mode {mode!r}")
-    r_svb = r_sv.view(-1, _BLK)
-    r_payb = r_pay.view(-1, _BLK)
-    s_svb = s_sv.view(-1, _BLK)
-    s_payb = s_pay.view(-1, _BLK)
-    if mode == "mul":
+    if mode == "add":
+        h, t = banded_probe_per_s(r_sv, r_pay, s_sv, window_blocks)
+        # int64 wraps mod 2^64, a multiple of 2^32: the low word stays exact
+        return wrap_i32(t.sum() + (h.long() * s_pay).sum())
+    with profiling.annotate("tpujoin.probe"):
+        r_svb = r_sv.view(-1, _BLK)
+        r_payb = r_pay.view(-1, _BLK)
+        s_svb = s_sv.view(-1, _BLK)
+        s_payb = s_pay.view(-1, _BLK)
         lo, hi, chunks = _probe_schedule(r_sv, s_sv, window_blocks)
         acc = torch.zeros(1, dtype=torch.int32, device=s_sv.device)
         for r, ids in chunks:
             banded_window_sum(s_svb, s_payb, r_svb, r_payb, ids, lo, hi, r,
                               window_blocks, acc)
         return acc[0]
-    h, t = banded_probe_per_s(r_sv, r_pay, s_sv, window_blocks)
-    # int64 wraps mod 2^64, a multiple of 2^32: the low word stays exact
-    return wrap_i32(t.sum() + (h.long() * s_pay).sum())
 
 
 def banded_probe_per_s(r_sv: torch.Tensor, r_pay: torch.Tensor,
@@ -219,17 +233,18 @@ def banded_probe_per_s(r_sv: torch.Tensor, r_pay: torch.Tensor,
 
     Requires real keys >= 0. S pad rows may carry garbage h (pad-vs-pad
     sentinel equality); callers drop them."""
-    nsb = s_sv.shape[0] // _BLK
-    r_svb = r_sv.view(-1, _BLK)
-    r_payb = r_pay.view(-1, _BLK)
-    s_svb = s_sv.view(-1, _BLK)
-    h = torch.zeros((nsb, _BLK), dtype=torch.int32, device=s_sv.device)
-    t = torch.zeros_like(h)
-    lo, hi, chunks = _probe_schedule(r_sv, s_sv, window_blocks)
-    for r, ids in chunks:
-        banded_window_per_s(s_svb, r_svb, r_payb, ids, lo, hi, r,
-                            window_blocks, h, t)
-    return h.view(-1), t.view(-1)
+    with profiling.annotate("tpujoin.probe"):
+        nsb = s_sv.shape[0] // _BLK
+        r_svb = r_sv.view(-1, _BLK)
+        r_payb = r_pay.view(-1, _BLK)
+        s_svb = s_sv.view(-1, _BLK)
+        h = torch.zeros((nsb, _BLK), dtype=torch.int32, device=s_sv.device)
+        t = torch.zeros_like(h)
+        lo, hi, chunks = _probe_schedule(r_sv, s_sv, window_blocks)
+        for r, ids in chunks:
+            banded_window_per_s(s_svb, r_svb, r_payb, ids, lo, hi, r,
+                                window_blocks, h, t)
+        return h.view(-1), t.view(-1)
 
 
 def banded_match_descriptors(r_sv: torch.Tensor, s_sv: torch.Tensor,
@@ -242,15 +257,17 @@ def banded_match_descriptors(r_sv: torch.Tensor, s_sv: torch.Tensor,
     materialization (phase 1 of join_partitioned_results,
     src/join-primitives.cu:1107-1416). fm = INT32_MAX where h == 0. The
     windowed kernel 3 updates h and fm in place, round by round."""
-    nsb = s_sv.shape[0] // _BLK
-    r_svb = r_sv.view(-1, _BLK)
-    s_svb = s_sv.view(-1, _BLK)
-    h = torch.zeros((nsb, _BLK), dtype=torch.int32, device=s_sv.device)
-    fm = torch.full_like(h, INT32_MAX)
-    lo, hi, chunks = _probe_schedule(r_sv, s_sv, window_blocks)
-    for r, ids in chunks:
-        banded_window_first(s_svb, r_svb, ids, lo, hi, r, window_blocks, h, fm)
-    return h.view(-1), fm.view(-1)
+    with profiling.annotate("tpujoin.probe"):
+        nsb = s_sv.shape[0] // _BLK
+        r_svb = r_sv.view(-1, _BLK)
+        s_svb = s_sv.view(-1, _BLK)
+        h = torch.zeros((nsb, _BLK), dtype=torch.int32, device=s_sv.device)
+        fm = torch.full_like(h, INT32_MAX)
+        lo, hi, chunks = _probe_schedule(r_sv, s_sv, window_blocks)
+        for r, ids in chunks:
+            banded_window_first(s_svb, r_svb, ids, lo, hi, r, window_blocks,
+                                h, fm)
+        return h.view(-1), fm.view(-1)
 
 
 def _blocks_of(x: torch.Tensor, idx: torch.Tensor, width: int) -> torch.Tensor:
@@ -426,26 +443,31 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
     s_sv, s_p = sort_by_key(s_keys, s_pay, sort_impl)
     n_s = s_keys.shape[0]
     h, fm = banded_match_descriptors(r_sv, s_sv, window_blocks)
-    # drop S sentinel-padding rows (at the end of the sorted order)
-    h, fm, s_p = h[:n_s], fm[:n_s], s_p[:n_s]
-    hsum = torch.cumsum(h, 0)
-    off = wrap_i32(hsum - h)
-    total_t = wrap_i32(hsum[-1] if n_s else hsum.sum())
-    total = int(total_t)
-    if total <= 0:   # every slot is masked by pos < total on both paths
-        zeros = torch.zeros(capacity, dtype=torch.int32, device=h.device)
-        return zeros, zeros.clone(), total_t
-    force = debug_force
-    if force is None and wrap and total > capacity:
-        force = "slow"   # a ring lap: the span check cannot pass
-    if force != "slow":
-        ok, plan = _fast_path_plan(h, fm, off, s_p, r_p, capacity, total)
-        if force == "fast" or bool(ok):
-            out_r, out_s = _extract_blocked(*plan)
-            return out_r[:capacity], out_s[:capacity], total_t
-    out_r, out_s = _materialize_slot_path(h, fm, off, s_p, r_p, capacity,
-                                          total, wrap)
-    return out_r, out_s, total_t
+    with profiling.annotate("tpujoin.extract"):
+        # drop S sentinel-padding rows (at the end of the sorted order)
+        h, fm, s_p = h[:n_s], fm[:n_s], s_p[:n_s]
+        hsum = torch.cumsum(h, 0)
+        off = wrap_i32(hsum - h)
+        total_t = wrap_i32(hsum[-1] if n_s else hsum.sum())
+        with profiling.host_wait():
+            total = int(total_t)
+        if total <= 0:   # every slot is masked by pos < total on both paths
+            zeros = torch.zeros(capacity, dtype=torch.int32, device=h.device)
+            return zeros, zeros.clone(), total_t
+        force = debug_force
+        if force is None and wrap and total > capacity:
+            force = "slow"   # a ring lap: the span check cannot pass
+        if force != "slow":
+            ok, plan = _fast_path_plan(h, fm, off, s_p, r_p, capacity, total)
+            if force is None:
+                with profiling.host_wait():
+                    force = "fast" if bool(ok) else "slow"
+            if force == "fast":
+                out_r, out_s = _extract_blocked(*plan)
+                return out_r[:capacity], out_s[:capacity], total_t
+        out_r, out_s = _materialize_slot_path(h, fm, off, s_p, r_p, capacity,
+                                              total, wrap)
+        return out_r, out_s, total_t
 
 
 def banded_join_aggregate(r_keys: torch.Tensor, r_pay: torch.Tensor,

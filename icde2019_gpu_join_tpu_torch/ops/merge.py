@@ -61,6 +61,7 @@ import torch
 
 from icde2019_gpu_join_tpu_torch.ops import _build, _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
+from icde2019_gpu_join_tpu_torch.utils import profiling
 
 INT_MIN = -0x80000000
 INT_MAX = 0x7FFFFFFF
@@ -569,9 +570,17 @@ def packed_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
 def torch_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The library sort (`sort_impl="lax"`): `torch.sort` of the keys and a
-    gather of the payloads."""
+    gather of the payloads, the span `tpujoin.sort.gather`."""
     sv_s, idx = torch.sort(sv)
-    return sv_s, pv[idx]
+    with profiling.annotate("tpujoin.sort.gather"):
+        return sv_s, pv[idx]
+
+
+def _has_sentinel(sv: torch.Tensor) -> bool:
+    """Whether any sortval is a masking sentinel: a host read."""
+    hit = ((sv == INT_MIN) | (sv == INT_MAX)).any()
+    with profiling.host_wait():
+        return bool(hit)
 
 
 def merge_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
@@ -584,8 +593,7 @@ def merge_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
     _check_pairs(sv, pv)
     n = sv.shape[0]
     if (n < 2 * BASE_RUN or not _is_pow2(n)
-            or (n > CASCADE_MAX_N and sv.is_cuda)
-            or bool(((sv == INT_MIN) | (sv == INT_MAX)).any())):
+            or (n > CASCADE_MAX_N and sv.is_cuda) or _has_sentinel(sv)):
         _launches.count(ROUTES, "fallback")
         return torch_sort_pairs(sv, pv)
     _launches.count(ROUTES, "cascade")

@@ -9,7 +9,27 @@ Port of `icde2019_gpu_join_tpu/utils/profiling.py`:
     when given a directory or when `TPUJOIN_PROFILE_DIR` is set, the
     variable the JAX package reads.
   * `annotate(name)`: a named span in the trace (`record_function`) and, on
-    a card, an NVTX range.
+    a card, an NVTX range, entered only while a torch profiler records;
+  * `host_wait()`: the span of a wait of the host on the device,
+    `tpujoin.sync`, counted whether or not a profiler records.
+
+The engine's spans, one each where a query crosses a layer:
+
+    tpujoin.join          the whole banded call (a `utils/timing.PhaseTimer`
+                          phase; every phase is `tpujoin.<phase>`)
+    tpujoin.sort          one side's sort (`ops/band_join.sort_by_key`)
+    tpujoin.sort.gather   its payload gather (`ops/merge.torch_sort_pairs`)
+    tpujoin.probe         one probe call: schedule, read-back, round loop
+    tpujoin.windows       the probe's block windows, under `tpujoin.probe`
+    tpujoin.extract       materialize's extraction, after its descriptors
+    tpujoin.sync          each host wait on the device inside a query
+
+A span's device time is that of the kernels, copies and fills launched
+inside it; in the profiler's trace they lie on one clock with the spans, so
+an idle gap of the device can be put down to the spans open on the host at
+that moment. There are no spans per chunk or per round. The counters
+beside them are `ops/_launches.EVENTS` and each kernel wrapper's
+`LAUNCHES`.
 
 Streamed and co-processed overlap shows in such a trace as the copy
 stream's uploads of segment k + 1 beside the compute stream's kernels of
@@ -24,6 +44,8 @@ import time
 from typing import Optional
 
 import torch
+
+from icde2019_gpu_join_tpu_torch.ops import _launches
 
 ENV_VAR = "TPUJOIN_PROFILE_DIR"
 
@@ -58,11 +80,25 @@ def maybe_trace(tag: str, logdir: Optional[str] = None, device="cuda"):
         yield prof
 
 
-@contextlib.contextmanager
+# the no-op span: shared, since it holds no state
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str, device="cuda"):
-    """A named span of the trace; on a card also an NVTX range."""
+    """A named span of the trace and, on a card in use, an NVTX range,
+    while a torch profiler records. Otherwise a shared no-op context, for
+    the cost of one flag check: `record_function` costs microseconds even
+    with no profiler."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return _span(name, device)
+
+
+@contextlib.contextmanager
+def _span(name: str, device):
     with torch.profiler.record_function(name):
-        if torch.device(device).type != "cuda":
+        if (torch.device(device).type != "cuda"
+                or not torch.cuda.is_initialized()):
             yield
             return
         torch.cuda.nvtx.range_push(name)
@@ -70,3 +106,11 @@ def annotate(name: str, device="cuda"):
             yield
         finally:
             torch.cuda.nvtx.range_pop()
+
+
+def host_wait():
+    """Mark a wait of the host on the device inside a query: a
+    `tpujoin.sync` span, whose host length is the wait, and one more
+    `host_syncs` in `ops/_launches.EVENTS`."""
+    _launches.count(_launches.EVENTS, "host_syncs")
+    return annotate("tpujoin.sync")

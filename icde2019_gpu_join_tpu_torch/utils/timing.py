@@ -27,6 +27,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from icde2019_gpu_join_tpu_torch.utils import profiling
+
 # Device memory rate (GB/s) by name, NVIDIA's data sheets; matched as a
 # case-insensitive substring of `torch.cuda.get_device_name`. "cpu" is the
 # JAX package's own figure for the host, kept so that both packages report
@@ -121,7 +123,8 @@ class PhaseTimer:
     """Collects named phases; a phase that sets `out["result"]` to CUDA
     tensors is closed by synchronising the card of the first of them, and
     that card's memory rate is the report's `hbm_gbps` (the CPU's when no
-    phase synchronised one)."""
+    phase synchronised one). A phase is the span `tpujoin.<name>`, and its
+    synchronisation a `tpujoin.sync` (`utils/profiling`)."""
 
     phases: List[Phase] = field(default_factory=list)
     device: Optional[torch.device] = None
@@ -131,12 +134,13 @@ class PhaseTimer:
         t0 = time.perf_counter()
         out = {}
         try:
-            with torch.profiler.record_function(f"tpujoin.{name}"):
+            with profiling.annotate(f"tpujoin.{name}"):
                 yield out
         finally:
             dev = cuda_device_of(out.get("result"))
             if dev is not None:
-                torch.cuda.synchronize(dev)
+                with profiling.host_wait():
+                    torch.cuda.synchronize(dev)
                 self.device = dev
             t1 = time.perf_counter()
             self.phases.append(Phase(name, t1 - t0, bytes_moved, rows))

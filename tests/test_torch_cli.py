@@ -112,6 +112,10 @@ def test_json_report(tmp_path, monkeypatch):
     assert [line.split(" is ")[0] for line in lines[2:5]] == [
         "Partition throughput", "Join throughput", "Total throughput"]
     want = json.loads(_run(jcli.main, argv, tmp_path / "jax", monkeypatch)[-1])
+    # the port's report also holds the timed call's counters
+    counts = rep.pop("counts")
+    assert counts["queries"] == 1 and counts["probe_rounds"] >= 1
+    assert counts["host_syncs"] == 2   # the probe's read-back and the answer's
     assert _keys(rep) == _keys(want)
     assert rep["hbm_gbps"] == want["hbm_gbps"] == 50.0
     for d in rep["phases"].values():
