@@ -89,8 +89,20 @@ run of all phases can pass. The phases:
              (against the C++ oracle);
   headline   the aggregate at 2^27 x 2^27 uniform PK-FK with payloads of 1,
              the `bench.py` workload: best of 3 after a warm-up; the windowed
-             kernel 1 must launch and the chunk entry point not at all;
-  sorts      `EngineConfig.sort_impl`: the headline relations with every key
+             kernel 1 must launch and the chunk entry point not at all, and
+             the radix pair sort (`ops/radix_pairs.py`) five times a side;
+  sorts      the radix pair sort (`radix_sort_pairs`, the "lax" route on the
+             card) against its plain version (`torch.sort` + gather) at
+             2^27 uniform keys, 2^29 Zipf z=1.05 keys (a hot digit in every
+             pass) and a ragged 100,000,007 uniform keys, sorted as the
+             engine sorts them (`rotate_keys`), full-range payloads: keys
+             equal, each key's payload multiset equal (the sorted packed
+             (sortval << 32 | payload) words of both), and the payloads in
+             a stable sort's order; one histogram and four pass launches a
+             call; its time alone beside its bound (68 bytes a row at the
+             memory rate), the 16-byte roofline and `torch.sort` + gather
+             (`library_ms`). Then `EngineConfig.sort_impl`: the headline
+             relations with every key
              plus 1 on both sides (the same join and oracle value, no sort
              value a masking sentinel) under "merge" and "packed", best of 3
              with peak memory; under "merge" each call must launch kernel 6
@@ -275,7 +287,7 @@ from icde2019_gpu_join_tpu_torch.models import (ClusteredJoin,
                                                 dispatch_regime, pipelines)
 from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
                                              groupby, merge, perfect_hash,
-                                             probe_ranges)
+                                             probe_ranges, radix_pairs)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.parallel import dist_join, dryrun
@@ -331,6 +343,8 @@ ROUTES = {
     "stage_reps": (f"{CSRC}/stage_reps.cu", "benchmarks/merge_sort_bench.py:77"),
     "construct_probes": (f"{CSRC}/construct_probes.cu",
                          "benchmarks/mosaic_bisect.py:89"),
+    # no TPU kernel: the JAX package's lax.sort is a library sort
+    "radix_sort_pairs": (f"{CSRC}/radix_pairs.cu", "none (lax.sort; ROADMAP R1)"),
 }
 # The integer operations each kernel's function needs per unit of work, for
 # its bound: per compared (S row, R column) pair a compare and one
@@ -417,7 +431,7 @@ def _oracle_value(scale: int, skew: float) -> int:
 
 
 # the modules whose wrappers count their kernels' launches
-COUNTED = (band_compare, probe_ranges, merge, experimental_sort,
+COUNTED = (band_compare, probe_ranges, merge, radix_pairs, experimental_sort,
            merge_sort_bench, construct_probes)
 
 
@@ -733,6 +747,8 @@ def phase_build():
     merge_sort_bench._kernel()
     for name in construct_probes.ENTRY_POINTS:
         construct_probes._kernel(name)
+    for name in radix_pairs.LAUNCHES:
+        radix_pairs._kernel(name)
     if datagen.native_lib() is None:
         raise RuntimeError("native host library did not load")
     print(f"[build] kernels {t_kernels:.2f}s ({_build.KERNEL_LIB}) "
@@ -1585,6 +1601,10 @@ def phase_headline():
 
     res, launches = _launched(lambda: engine.aggregate(r, s))
     _require(launches, "headline", "banded_window_sum")
+    if (launches["radix_histogram"], launches["radix_pass"]) != (2, 8):
+        raise AssertionError(f"headline: the radix pair sort launched "
+                             f"{launches['radix_histogram']} histograms and "
+                             f"{launches['radix_pass']} passes, not 2 and 8")
     if launches["banded_compare_sum"]:
         raise AssertionError(f"headline: the chunk-array kernel 1 launched "
                              f"{launches['banded_compare_sum']} times")
@@ -1624,9 +1644,96 @@ def _expect_cascade(launches: dict, path: str, levels_launches: int,
         raise AssertionError(f"{path}: launches and routes {got} != {want}")
 
 
-def phase_sorts(big) -> dict:
-    """`sort_impl` "merge" and "packed" through the engine. Returns the
-    launch counts of one 2^27 aggregate under "merge"."""
+# the radix pair sort's shapes: (keys, rows)
+RADIX_SORTS = (("uniform", 1 << 27), ("zipf", 1 << 29), ("uniform", 100_000_007))
+RADIX_ZIPF = 1.05
+RADIX_BYTES = 68   # a row: 4 for the histograms, 16 in each of four passes
+_RADIX_BLOCK = 1 << 26   # Zipf rows drawn at a time
+
+
+def _radix_inputs(gen, kind: str, n: int):
+    """(sortvals as the engine sorts them, full-range payloads) on the card:
+    keys a permutation of 0 .. n - 1, or Zipf(RADIX_ZIPF) ranks over 1 .. n
+    by a search in the float64 CDF through a random permutation, as the
+    benchmark's Zipf cell draws S."""
+    if kind == "uniform":
+        keys = torch.randperm(n, generator=gen, device=DEVICE).to(torch.int32)
+    else:
+        cdf = torch.arange(1, n + 1, device=DEVICE,
+                           dtype=torch.float64).pow_(-RADIX_ZIPF)
+        cdf = torch.cumsum(cdf, 0)
+        cdf.div_(cdf[-1].clone())
+        alphabet = torch.randperm(n, generator=gen, device=DEVICE) + 1
+        keys = torch.empty(n, dtype=torch.int32, device=DEVICE)
+        for lo in range(0, n, _RADIX_BLOCK):
+            hi = min(n, lo + _RADIX_BLOCK)
+            u = torch.rand(hi - lo, generator=gen, device=DEVICE,
+                           dtype=torch.float64)
+            pos = torch.searchsorted(cdf, u).clamp_(max=n - 1)
+            keys[lo:hi] = alphabet[pos]
+        del cdf, alphabet
+    return band_join.rotate_keys(keys, 0, 0), _full(gen, (n,))
+
+
+def _same_multisets(got, want, what: str):
+    """Each key's payloads the same multiset: the sorted packed words."""
+    a = torch.sort(_packed_words(*got)).values
+    b = torch.sort(_packed_words(*want)).values
+    same = torch.equal(a, b)
+    del a, b
+    if not same:
+        raise AssertionError(f"{what}: (key, payload) multiset changed")
+
+
+def _radix_sorts() -> dict:
+    """The radix pair sort against its plain version at `RADIX_SORTS`, and
+    its times; returns its stats (the first shape's at the top level)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    timed = []
+    for kind, n in RADIX_SORTS:
+        sv, pv = _radix_inputs(gen, kind, n)
+        what = f"radix_sort_pairs at {n} {kind}"
+        got, launches = _launched(lambda: radix_pairs.radix_sort_pairs(sv, pv))
+        if (launches["radix_histogram"], launches["radix_pass"]) != (1, 4):
+            raise AssertionError(f"{what}: launches {launches}")
+        want = radix_pairs.torch_sort_pairs(sv, pv)
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"{what}: keys != the plain version's")
+        _same_multisets(got, want, what)
+        del want
+        idx = torch.sort(sv, stable=True).indices
+        if not torch.equal(got[1], pv[idx]):
+            raise AssertionError(f"{what}: payloads not in a stable order")
+        del idx
+        hot = int(torch.unique_consecutive(got[0], return_counts=True)[1].max())
+        del got
+        torch.cuda.empty_cache()
+        ms = _time_ms(lambda: radix_pairs.radix_sort_pairs(sv, pv), 10)
+        library_ms = _time_ms(lambda: radix_pairs.torch_sort_pairs(sv, pv), 5)
+        st = {"rows": n, "keys": kind, "hot_key_share": hot / n, "ms": ms,
+              # the plain version is the library call itself
+              "plain_ms": library_ms, "library_ms": library_ms,
+              "bound_ms": RADIX_BYTES * n / CARD["hbm_bytes_per_s"] * 1e3,
+              "bound_by": "bytes",
+              "roofline_ms": 16 * n / CARD["hbm_bytes_per_s"] * 1e3}
+        timed.append(st)
+        print(f"[sorts] {what}: keys equal to plain, payload multisets "
+              f"equal, stable; hottest key {hot / n:.4f} of the rows; "
+              f"kernel {ms:.4f} ms, bound {st['bound_ms']:.4f} ms "
+              f"({RADIX_BYTES} B a row), 16 B roofline "
+              f"{st['roofline_ms']:.4f} ms ({100 * st['roofline_ms'] / ms:.2f}%),"
+              f" torch.sort + gather {library_ms:.4f} ms", flush=True)
+        del sv, pv
+        torch.cuda.empty_cache()
+    return {"max_abs_err": 0, **timed[0], "timed": timed}
+
+
+def phase_sorts(big) -> tuple:
+    """The radix pair sort against its plain version; `sort_impl` "merge"
+    and "packed" through the engine. Returns the launch counts of one 2^27
+    aggregate under "merge" and the radix pair sort's stats."""
+    radix = _radix_sorts()
     _, _, r_keys, s_keys = big
     n = r_keys.shape[0]
     ones = torch.ones_like(r_keys)
@@ -1718,7 +1825,7 @@ def phase_sorts(big) -> dict:
     lines.append(f"config 3 at {C3_PACKED[0]} x {C3_PACKED[1]} under 'packed' "
                  f"= direct oracle, best of {REPS} {t_c3 * 1e3:.3f} ms")
     print("[sorts] " + "; ".join(lines))
-    return head
+    return head, radix
 
 
 def _key_payloads(r_keys, s_keys):
@@ -2652,7 +2759,7 @@ def main(argv=None):
     _timed("sort tools", phase_sort_tools)
     _timed("mid", phase_mid)
     head, big = _timed("headline", phase_headline)
-    sorts = _timed("sorts", phase_sorts, big)
+    sorts, kstats["radix_sort_pairs"] = _timed("sorts", phase_sorts, big)
     fast, ring = _timed("materialize", phase_materialize, big)
     part, at_config2 = _timed("partitioned", phase_partitioned, big)
     kstats["probe_aggregate_ranges"].update(at_config2)
@@ -2695,7 +2802,10 @@ def main(argv=None):
                 "banded_interval_select": fast["banded_interval_select"],
                 "probe_aggregate_ranges": part["probe_aggregate_ranges"],
                 "merge_levels_vmem": sorts["merge_levels_vmem"],
-                "merge_level_hbm": sorts["merge_level_hbm"], **tools}
+                "merge_level_hbm": sorts["merge_level_hbm"],
+                # a histogram and four passes a side of the 2^27 aggregate
+                "radix_sort_pairs": (head["radix_histogram"]
+                                     + head["radix_pass"]), **tools}
     # kernel 7 is two launches a level: its plan kernel's count beside it
     kstats["merge_level_hbm"]["plan_launches"] = sorts["merge_level_plan"]
     # the two kernels with the longest records of levels and windows come

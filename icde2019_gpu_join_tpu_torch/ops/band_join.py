@@ -51,8 +51,8 @@ from icde2019_gpu_join_tpu_torch.ops.bits import rotate_keys, wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.merge import (
     merge_sort_pairs,
     packed_sort_pairs,
-    torch_sort_pairs,
 )
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import radix_sort_pairs
 from icde2019_gpu_join_tpu_torch.utils import profiling
 
 _BLK = 128
@@ -90,21 +90,23 @@ def resolve_sort_impl(sort_impl: Optional[str]) -> str:
 
 def sort_pairs(sv: torch.Tensor, pay: torch.Tensor,
                sort_impl: Optional[str] = None):
-    """The engine's hot (sortval, payload) sort: signed int32 ascending,
-    unstable. All three implementations agree on the key order and on the
-    per-key payload multiset; the payload order among equal keys is
-    unspecified.
+    """The engine's hot (sortval, payload) sort: signed int32 ascending.
+    All three implementations agree on the key order and on the per-key
+    payload multiset; the payload order among equal keys is unspecified, and
+    every caller compares its results as sums or multisets.
 
     sort_impl (`EngineConfig.sort_impl`; `resolve_sort_impl`): None or
-    "lax", the config's name for the library sort, here `torch.sort` and a
-    payload gather; "merge", the merge-tree cascade of ops/merge.py; "packed",
-    one sort of (sortval << 32 | payload) words."""
+    "lax", the config's name for the library sort, here
+    `ops/radix_pairs.radix_sort_pairs` (on the card the stable radix pair
+    sort of `csrc/radix_pairs.cu`; on the CPU `torch.sort` and a payload
+    gather); "merge", the merge-tree cascade of ops/merge.py; "packed", one
+    sort of (sortval << 32 | payload) words."""
     impl = resolve_sort_impl(sort_impl)
     if impl == "merge":
         return merge_sort_pairs(sv, pay)
     if impl == "packed":
         return packed_sort_pairs(sv, pay)
-    return torch_sort_pairs(sv, pay)
+    return radix_sort_pairs(sv, pay)
 
 
 def sort_by_key(keys: torch.Tensor, pay: torch.Tensor,

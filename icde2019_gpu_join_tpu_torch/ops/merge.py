@@ -38,8 +38,10 @@ and the kernels keep it bit for bit.
 
 Sentinels: window masking uses INT32_MIN / INT32_MAX as -inf / +inf, and a
 real key equal to one could tie with junk and trade payloads with it. So
-`merge_sort_pairs` falls back to `torch.sort` when any sortval equals a
-sentinel (one host read), as the reference falls back to its library sort.
+`merge_sort_pairs` falls back to the engine's library-route sort
+(`ops/radix_pairs.radix_sort_pairs`: the radix pair sort on the card,
+`torch.sort` + gather on the CPU) when any sortval equals a sentinel (one
+host read), as the reference falls back to its library sort.
 The engine sorts sign-flipped keys: key 0 becomes INT32_MIN and the pad key
 -1 INT32_MAX, so a relation that holds key 0 or needs padding takes the
 fallback. `ROUTES` counts which way each call went.
@@ -61,6 +63,12 @@ import torch
 
 from icde2019_gpu_join_tpu_torch.ops import _build, _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
+# `torch_sort_pairs`, the library sort, is re-exported for the sort tools
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import (  # noqa: F401
+    check_pairs as _check_pairs,
+    radix_sort_pairs,
+    torch_sort_pairs,
+)
 from icde2019_gpu_join_tpu_torch.utils import profiling
 
 INT_MIN = -0x80000000
@@ -72,7 +80,7 @@ HBM_WINDOW = 8192           # per-side window of the merge-path kernel
 HBM_TILE_OUT = HBM_WINDOW - 128   # valid output rows of a full tile
 # The reference's bound, from the scalar memory its TPU kernel's meta table
 # must fit, not a limit of this card. Kept, with the rule in
-# `merge_sort_pairs`, so that what the card routes to `torch.sort` is what
+# `merge_sort_pairs`, so that what the card routes to its fallback is what
 # the TPU routes to its library sort.
 CASCADE_MAX_N = 1 << 27
 
@@ -100,18 +108,6 @@ def reset_launches():
 
 def _is_pow2(x: int) -> bool:
     return x > 0 and x & (x - 1) == 0
-
-
-def _check_pairs(sv: torch.Tensor, pv: torch.Tensor):
-    for name, x in (("sv", sv), ("pv", pv)):
-        if x.dtype != torch.int32 or x.dim() != 1 or not x.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous 1-D int32 "
-                             f"tensor, got {x.dtype} {tuple(x.shape)}")
-    if sv.shape != pv.shape or sv.device != pv.device:
-        raise ValueError(f"sv {tuple(sv.shape)} on {sv.device} and pv "
-                         f"{tuple(pv.shape)} on {pv.device} differ")
-    if sv.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {sv.device}")
 
 
 def _check_aligned(*named: Tuple[str, torch.Tensor]):
@@ -567,15 +563,6 @@ def packed_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
     return (w >> 32).to(torch.int32), wrap_i32(w)
 
 
-def torch_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The library sort (`sort_impl="lax"`): `torch.sort` of the keys and a
-    gather of the payloads, the span `tpujoin.sort.gather`."""
-    sv_s, idx = torch.sort(sv)
-    with profiling.annotate("tpujoin.sort.gather"):
-        return sv_s, pv[idx]
-
-
 def _has_sentinel(sv: torch.Tensor) -> bool:
     """Whether any sortval is a masking sentinel: a host read."""
     hit = ((sv == INT_MIN) | (sv == INT_MAX)).any()
@@ -586,7 +573,7 @@ def _has_sentinel(sv: torch.Tensor) -> bool:
 def merge_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort (sv, pv) by sv ascending (signed int32), unstable: a drop-in for
-    the two-operand `torch.sort` + gather. Falls back to that when n is not
+    the library route (`radix_sort_pairs`). Falls back to it when n is not
     a power of two of at least 2 * BASE_RUN, when n > CASCADE_MAX_N on the
     card (see the constant), or when any sortval equals a masking sentinel
     (one host read; the reference: `lax.cond`). `ROUTES` counts both ways."""
@@ -595,6 +582,6 @@ def merge_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
     if (n < 2 * BASE_RUN or not _is_pow2(n)
             or (n > CASCADE_MAX_N and sv.is_cuda) or _has_sentinel(sv)):
         _launches.count(ROUTES, "fallback")
-        return torch_sort_pairs(sv, pv)
+        return radix_sort_pairs(sv, pv)
     _launches.count(ROUTES, "cascade")
     return _merge_sort_cascade(sv, pv)

@@ -57,7 +57,7 @@ from icde2019_gpu_join_tpu_torch.ops.band_join import (
 )
 from icde2019_gpu_join_tpu_torch.ops.bits import partition_ids, rotate_keys
 from icde2019_gpu_join_tpu_torch.ops.bits import unrotate_keys, wrap_i32
-from icde2019_gpu_join_tpu_torch.ops.merge import torch_sort_pairs
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import radix_sort_pairs
 from icde2019_gpu_join_tpu_torch.parallel import plan as xplan
 from icde2019_gpu_join_tpu_torch.parallel.exchange import (
     _SENT,
@@ -258,7 +258,7 @@ def _pack_heavy(keys, pays, mask, cap: int, first_bit: int,
     if n < cap:
         sv = torch.cat([sv, sv.new_full((cap - n,), _SENT)])
         pz = torch.cat([pz, pz.new_zeros(cap - n)])
-    sv_s, p_s = torch_sort_pairs(sv, pz)
+    sv_s, p_s = radix_sort_pairs(sv, pz)
     sv_s, p_s = sv_s[:cap], p_s[:cap]
     cnt = mask.sum().to(torch.int32)
     idx = torch.arange(cap, dtype=torch.int32, device=keys.device)

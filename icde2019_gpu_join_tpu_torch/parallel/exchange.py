@@ -41,7 +41,7 @@ from icde2019_gpu_join_tpu_torch.ops.bits import (
     rotate_keys,
     unrotate_keys,
 )
-from icde2019_gpu_join_tpu_torch.ops.merge import torch_sort_pairs
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import radix_sort_pairs
 from icde2019_gpu_join_tpu_torch.ops.partition_radix import radix_group
 
 _BLK = 128
@@ -113,7 +113,7 @@ def partition_to_buckets(
         else:
             count = torch.tensor(keys.shape[0], dtype=torch.int32, device=dev)
         F = frame_rows(cap)
-        rot_s, pays_s = torch_sort_pairs(_pad_to(rot, F, _SENT),
+        rot_s, pays_s = radix_sort_pairs(_pad_to(rot, F, _SENT),
                                          _pad_to(pays, F, 0))
         take = torch.clamp(count, max=cap)
         idx = torch.arange(F, dtype=torch.int32, device=dev)
@@ -130,7 +130,7 @@ def partition_to_buckets(
         rot = torch.where(valid, rot, _SENT)
         pays = torch.where(valid, pays, 0)
     n = rot.shape[0] + (-rot.shape[0] % _BLK)
-    rot_s, pays_s = torch_sort_pairs(_pad_to(rot, n, _SENT),
+    rot_s, pays_s = radix_sort_pairs(_pad_to(rot, n, _SENT),
                                      _pad_to(pays, n, 0))
 
     bounds = torch.cat([partition_boundaries(bits, dev),

@@ -18,7 +18,9 @@ The engine's spans, one each where a query crosses a layer:
     tpujoin.join          the whole banded call (a `utils/timing.PhaseTimer`
                           phase; every phase is `tpujoin.<phase>`)
     tpujoin.sort          one side's sort (`ops/band_join.sort_by_key`)
-    tpujoin.sort.gather   its payload gather (`ops/merge.torch_sort_pairs`)
+    tpujoin.sort.gather   its payload gather on the CPU
+                          (`ops/radix_pairs.torch_sort_pairs`; the card's
+                          radix pair sort has no gather)
     tpujoin.probe         one probe call: schedule, read-back, round loop
     tpujoin.windows       the probe's block windows, under `tpujoin.probe`
     tpujoin.extract       materialize's extraction, after its descriptors
