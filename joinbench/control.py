@@ -6,10 +6,11 @@
 For each seed of `--seeds` it runs the cell as a run does, a short window
 of the program at the cell's own size and load, and prints the numbers
 compared; for each of `--control-seeds` the same with the control in the
-program's place: the plain reference with every payload narrowed to 16
-bits, the next lower integer precision than the configuration's int32. The
-last line gives, for each number, the largest reading of the program (the
-lower reading) and the smallest of the control (the upper one). The
+program's place: the `control` of the cell's query type
+(`queries/<query>.py`), its plain reference with every payload narrowed to
+16 bits, the next lower integer precision than the configuration's int32.
+The last line gives, for each number, the largest reading of the program
+(the lower reading) and the smallest of the control (the upper one). The
 benchmark's own runs never run this.
 """
 

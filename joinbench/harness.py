@@ -9,10 +9,18 @@ folders; nothing here names a cell.
 * configuration `configs/<name>.json` (its `file` in `BENCHMARK.json`):
   "n_r", "n_s", "s_keys" ("uniform" or "zipf"), "zipf_z", "engine" (the
   `EngineConfig` keys it sets, none for the defaults);
-* mix `mixes/<traffic>.json`: "query" ("aggregate" or "materialize"),
+* mix `mixes/<traffic>.json`: "query" (the query type's file, below),
   "clients" (1: the window is a closed loop with one client), "pairs"
-  (input pairs the window alternates between), "capacity_per_s_row"
-  (materialize: ring slots per S row);
+  (input pairs the window alternates between), and any key its query type
+  reads;
+* query type `queries/<query>.py`, which defines one class:
+  `__init__(cell, seed)`; `inputs(pairs, device)`, the program's arguments
+  for each input pair, with whatever more it draws from the seed;
+  `program(engine)` and `control(payload_bits)`, the call the window times
+  and the plain reference in its place at a lower precision; `record(i,
+  pair, answer)`; `judge(pairs)`, which sets `failed` and `compared` and
+  returns the numbers compared, each with its limit in `limits`. A
+  configuration may carry keys that only its query type reads;
 * per-layer metric `metrics/<name>.py`, whose `read(view)` takes a
   `trace.LayerView` and returns a number or None;
 * span `spans/<name>.json` (`trace.installed`).
@@ -31,7 +39,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from joinbench import datagen, peaks, reference, trace
+from joinbench import datagen, peaks, trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "icde2019_gpu_join_tpu")
@@ -85,96 +93,6 @@ def load_cell(workload: str, root: str = ROOT) -> Cell:
     return Cell(workload, config, mix, int(w["chips"]), bench, bench_dir)
 
 
-# --- query types: the program's call, the reference's answer, the check ---
-
-def _relations(pairs):
-    from icde2019_gpu_join_tpu_torch.relation import Relation
-    return [(Relation(rk, rp), Relation(sk, sp)) for rk, rp, sk, sp in pairs]
-
-
-class Aggregate:
-    """SUM(Pr * Ps) mod 2^32: every query's answer is compared."""
-
-    def __init__(self, cell: Cell, seed: int):
-        self.answers: List[tuple] = []
-        self.failed = 0
-
-    def program(self, engine) -> Callable:
-        return lambda r, s: engine.aggregate(r, s).aggregate
-
-    def control(self, payload_bits: int) -> Callable:
-        return lambda r, s: reference.aggregate(r.keys, r.payload, s.keys,
-                                                s.payload, payload_bits)
-
-    def record(self, i: int, pair: int, answer) -> None:
-        self.answers.append((pair, answer))
-
-    def judge(self, pairs) -> Dict[str, int]:
-        expect = [reference.aggregate(*p) for p in pairs]
-        self.failed = sum(a != expect[p] for p, a in self.answers)
-        self.compared = f"{len(self.answers)} sums"
-        return {"wrong_answers": self.failed}
-
-
-class Materialize:
-    """Matched (Pr, Ps) pairs into a ring of capacity slots. Every query's
-    output is compared whole, as a multiset of its slots' pairs, the empty
-    slots as (0, 0): its count, its number of slots and its two sums
-    (`reference.checksum`), taken on the device as the answer is recorded,
-    outside the window's clock."""
-
-    def __init__(self, cell: Cell, seed: int):
-        self.capacity = int(cell.mix["capacity_per_s_row"] * cell.config["n_s"])
-        self.answers: List[tuple] = []
-        self.failed = 0
-
-    def program(self, engine) -> Callable:
-        def call(r, s):
-            res = engine.materialize(r, s, capacity=self.capacity)
-            return res.count, res.pairs
-        return call
-
-    def control(self, payload_bits: int) -> Callable:
-        def call(r, s):
-            n, packed = reference.pairs(r.keys, r.payload, s.keys, s.payload,
-                                        payload_bits)
-            out = torch.zeros(self.capacity, dtype=torch.int64,
-                              device=packed.device)
-            out[:n] = packed[:self.capacity]
-            return n, ((out >> 32).to(torch.int32), out.to(torch.int32))
-        return call
-
-    def record(self, i: int, pair: int, answer) -> None:
-        count, (out_r, out_s) = answer
-        self.answers.append((pair, int(count), int(out_r.shape[0]),
-                             reference.checksum(out_r, out_s)))
-
-    def judge(self, pairs) -> Dict[str, int]:
-        expect = []
-        for rk, rp, sk, sp in pairs:
-            n, packed = reference.pairs(rk, rp, sk, sp)
-            if n > self.capacity:
-                raise ValueError("the pairs check needs the join's output to "
-                                 "fit the ring: a lap overwrites matches")
-            want = torch.zeros(self.capacity, dtype=torch.int64,
-                               device=packed.device)
-            want[:n] = packed
-            del packed
-            expect.append((n, self.capacity, reference.fold(want)))
-            del want
-        counts = sum(a[1:3] != expect[a[0]][:2] for a in self.answers)
-        sums = sum(a[3] != expect[a[0]][2] for a in self.answers)
-        self.failed = sum(a[1:] != expect[a[0]] for a in self.answers)
-        self.compared = (f"{len(self.answers)} outputs ({counts} with a wrong "
-                         f"count or size, {sums} with wrong pair sums)")
-        return {"wrong_answers": self.failed}
-
-
-QUERIES = {"aggregate": Aggregate, "materialize": Materialize}
-# the limit of each number compared: 0, an exact comparison
-LIMITS = {"wrong_answers": 0}
-
-
 # --- the run ---
 
 def _sync(device) -> None:
@@ -189,21 +107,22 @@ def engine_for(cell: Cell, device):
                          device=device)
 
 
-def window(call: Callable, rels, query, seconds: float, device) -> Dict:
-    """The closed loop: one client, each query on the next input pair, each
-    latency from the call to its synchronised result, until `seconds` have
-    passed and every input pair has been queried. Recording an answer (for
-    an output, its sums on the device) stops the window's clock."""
+def window(call: Callable, args, query, seconds: float, device) -> Dict:
+    """The closed loop: one client, each query on the next input pair's
+    arguments, each latency from the call to its synchronised result, until
+    `seconds` have passed and every input pair has been queried. Recording
+    an answer (for an output, its sums on the device) stops the window's
+    clock."""
     lat: List[float] = []
     paused = 0.0
     t_start = time.perf_counter()
     with torch.profiler.record_function(trace.WINDOW):
         i = 0
         while True:
-            pair = i % len(rels)
+            pair = i % len(args)
             t0 = time.perf_counter()
             with torch.profiler.record_function(trace.QUERY):
-                answer = call(*rels[pair])
+                answer = call(*args[pair])
                 _sync(device)
             t1 = time.perf_counter()
             lat.append(t1 - t0)
@@ -214,7 +133,7 @@ def window(call: Callable, rels, query, seconds: float, device) -> Dict:
             t2 = time.perf_counter()
             paused += t2 - t1
             i += 1
-            if t2 - t_start - paused >= seconds and i >= len(rels):
+            if t2 - t_start - paused >= seconds and i >= len(args):
                 break
     return {"latencies": lat, "seconds": t2 - t_start - paused,
             "stopped": paused}
@@ -228,28 +147,28 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
              device="cuda", root: str = ROOT, control_bits: Optional[int] = None,
              t_process: Optional[float] = None) -> Dict:
     """One run of a cell; returns the result's line as a dict. With
-    `control_bits` the reference at that payload precision stands in the
-    program's place (the control)."""
+    `control_bits` the query type's control, its plain reference at that
+    payload precision, stands in the program's place."""
     t_process = process_start() if t_process is None else t_process
     cell = load_cell(workload, root)
     device = torch.device(device)
     is_cuda = device.type == "cuda"
-    query = QUERIES[cell.mix["query"]](cell, seed)
+    query = query_type(cell)(cell, seed)
     marks = [("start", time.time())]
     torch.zeros(1, device=device)   # the device's context
     _sync(device)
     marks.append(("context", time.time()))
     pairs = datagen.make_pairs(cell.config, int(cell.mix["pairs"]), seed, device)
+    args = query.inputs(pairs, device)
     _sync(device)
     marks.append(("inputs", time.time()))
-    rels = _relations(pairs)
     engine = engine_for(cell, device)
     call = query.program(engine) if control_bits is None else query.control(control_bits)
     marks.append(("program", time.time()))
     if is_cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    for r, s in rels:          # warm up every shape the window uses
-        call(r, s)
+    for a in args:             # warm up every shape the window uses
+        call(*a)
     _sync(device)
     marks.append(("warm_up", time.time()))
     setup_s = marks[-1][1] - t_process
@@ -265,13 +184,13 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         os.makedirs(os.path.dirname(trace_path), exist_ok=True)
         with trace.installed(spans), torch.profiler.profile(
                 activities=activities) as prof:
-            win = window(call, rels, query, seconds, device)
+            win = window(call, args, query, seconds, device)
         prof.export_chrome_trace(trace_path)
         del prof
     else:
-        win = window(call, rels, query, seconds, device)
+        win = window(call, args, query, seconds, device)
     peak = torch.cuda.max_memory_allocated(device) if is_cuda else 0
-    del call, engine, rels
+    del call, engine, args
     checks = query.judge(pairs)
 
     lat = win["latencies"]
@@ -309,17 +228,36 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
     line["compared"] = query.compared
     line["failed"] = query.failed
     line["correct"] = bool(n > 0 and query.failed == 0 and all(
-        v <= LIMITS[k] for k, v in checks.items()))
-    line["checks"] = {k: {"value": v, "limit": LIMITS[k]} for k, v in checks.items()}
+        v <= query.limits[k] for k, v in checks.items()))
+    line["checks"] = {k: {"value": v, "limit": query.limits[k]}
+                      for k, v in checks.items()}
     found = forbidden_modules()
     if found:
         raise SystemExit(f"loaded by the end of the run: {', '.join(found)}")
     return line
 
 
-def _reader(bench_dir: str, name: str) -> Callable:
-    path = os.path.join(bench_dir, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"joinbench.metrics.{name}", path)
+def _load(bench_dir: str, folder: str, name: str):
+    """The module `<folder>/<name>.py` of the benchmark, loaded by path."""
+    path = os.path.join(bench_dir, folder, name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{folder}/{name}.py: no such file in {bench_dir}")
+    spec = importlib.util.spec_from_file_location(f"joinbench.{folder}.{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def query_type(cell: Cell) -> type:
+    """The one class that the file of the cell's query type defines."""
+    module = _load(cell.bench_dir, "queries", cell.mix["query"])
+    classes = [v for v in vars(module).values()
+               if isinstance(v, type) and v.__module__ == module.__name__]
+    if len(classes) != 1:
+        raise ValueError(f"queries/{cell.mix['query']}.py defines "
+                         f"{len(classes)} classes, not one")
+    return classes[0]
+
+
+def _reader(bench_dir: str, name: str) -> Callable:
+    return _load(bench_dir, "metrics", name).read

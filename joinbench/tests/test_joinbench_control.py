@@ -7,7 +7,7 @@ import torch
 
 from icde2019_gpu_join_tpu_torch.models import joins
 from icde2019_gpu_join_tpu_torch.relation import Relation
-from joinbench import control, harness
+from joinbench import control, harness, reference
 
 CELLS = ["uniform_128Mx128M.agg", "zipf1.05_512Mx512M.agg", "uniform_128Mx128M.mat"]
 
@@ -44,7 +44,7 @@ def _half_batch(method):
     def call(self, r, s, *args, **kwargs):
         res = method(self, r, _half(s), *args, **kwargs)
         if res.aggregate is not None:
-            res.aggregate = harness.reference.to_i32(2 * res.aggregate)
+            res.aggregate = reference.to_i32(2 * res.aggregate)
         return res
     return call
 
@@ -54,7 +54,7 @@ def _altered(method):
     def call(self, r, s, *args, **kwargs):
         res = method(self, r, s, *args, **kwargs)
         if res.aggregate is not None:
-            res.aggregate = harness.reference.to_i32(res.aggregate + 1)
+            res.aggregate = reference.to_i32(res.aggregate + 1)
         else:
             out_r, out_s = res.pairs
             out_r = out_r.clone()

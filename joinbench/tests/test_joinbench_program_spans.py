@@ -1,5 +1,5 @@
 """The program's spans and counters as the benchmark reads them
-(`program_spans.py` and the eight readers that use it): on a made-up Chrome
+(`program_spans.py` and the seven readers that use it): on a made-up Chrome
 trace, on made-up counter tables, and in a traced run on the CPU."""
 
 import importlib.util
@@ -13,8 +13,8 @@ import pytest
 from joinbench import harness, program_spans, trace
 
 MAIN, OTHER = 1, 2
-SPAN_READERS = ("span_sort_ms", "span_sort_gather_ms", "span_probe_ms",
-                "span_extract_ms", "probe_idle_ms")
+SPAN_READERS = ("span_sort_ms", "span_probe_ms", "span_extract_ms",
+                "probe_idle_ms")
 COUNTER_READERS = ("probe_rounds", "probe_launches", "host_syncs")
 
 
@@ -114,7 +114,6 @@ def test_device_time_and_idle_by_program_span(tiny_root):
     read = _readers(tiny_root)
     view = _view()
     assert read["span_sort_ms"](view) == pytest.approx(0.175)
-    assert read["span_sort_gather_ms"](view) == pytest.approx(0.065)
     assert read["span_probe_ms"](view) == pytest.approx(0.195)   # windows too
     assert read["span_extract_ms"](view) == pytest.approx(0.21)
     # the gap inside the probe's read-back counts and so does the one

@@ -103,3 +103,21 @@ def test_without_the_program_the_command_fails_and_prints_no_result(tmp_path):
     assert proc.returncode != 0
     assert proc.stdout.strip() == ""
     assert PORT in proc.stderr
+
+
+def test_a_query_file_that_loads_jax_fails_the_run(tmp_path):
+    from conftest import copy_bench
+    root = copy_bench(tmp_path)
+    path = os.path.join(root, "joinbench", "queries", "aggregate.py")
+    with open(path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write("import jax\n" + text)
+    code = (f"from joinbench import run; run.report('uniform_128Mx128M.agg', 1, "
+            f"0.1, False, device='cpu', root={root!r})")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+    assert "loaded by the end of the run: jax" in proc.stderr
