@@ -26,9 +26,10 @@ Aggregates are SUM with int32 wraparound (src/join-primitives.cu:1052-1092);
 they do not depend on how the S blocks are ordered or chunked.
 
 Spans (`utils/profiling`): `tpujoin.sort` a side, `tpujoin.probe` a probe
-call with its `tpujoin.windows`, `tpujoin.extract` materialize's extraction,
-`tpujoin.sync` each host read; `ops/_launches.EVENTS["probe_rounds"]` counts
-the rounds each schedule walks.
+call with its `tpujoin.windows`, `tpujoin.reduce` the "add" probe's sum
+after it, `tpujoin.extract` materialize's extraction, `tpujoin.sync` each
+host read; `ops/_launches.EVENTS["probe_rounds"]` counts the rounds each
+schedule walks.
 """
 
 from __future__ import annotations
@@ -208,8 +209,10 @@ def banded_probe(r_sv: torch.Tensor, r_pay: torch.Tensor,
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "add":
         h, t = banded_probe_per_s(r_sv, r_pay, s_sv, window_blocks)
-        # int64 wraps mod 2^64, a multiple of 2^32: the low word stays exact
-        return wrap_i32(t.sum() + (h.long() * s_pay).sum())
+        with profiling.annotate("tpujoin.reduce"):
+            # int64 wraps mod 2^64, a multiple of 2^32: the low word stays
+            # exact
+            return wrap_i32(t.sum() + (h.long() * s_pay).sum())
     with profiling.annotate("tpujoin.probe"):
         r_svb = r_sv.view(-1, _BLK)
         r_payb = r_pay.view(-1, _BLK)

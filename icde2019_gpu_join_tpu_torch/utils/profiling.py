@@ -23,6 +23,10 @@ The engine's spans, one each where a query crosses a layer:
                           radix pair sort has no gather)
     tpujoin.probe         one probe call: schedule, read-back, round loop
     tpujoin.windows       the probe's block windows, under `tpujoin.probe`
+    tpujoin.reduce        the "add" probe's sum of its per-S counts and
+                          sums, after its `tpujoin.probe`
+    tpujoin.colsums       a late aggregate's column sums of both sides,
+                          gathered at their row ids (`models/joins.py`)
     tpujoin.extract       materialize's extraction, after its descriptors
     tpujoin.sync          each host wait on the device inside a query
 

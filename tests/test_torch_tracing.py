@@ -109,6 +109,16 @@ def test_spans_nest_at_the_layer_boundaries(query, kind, debug_force,
     # the probe's read-back, then the read of the answer after the phase
     # (a card's phase also synchronises; the CPU's does not)
     want = [("tpujoin.probe",) + join]
+    if query == "late_aggregate":
+        # both sides' column sums, before the sorts; the add-mode sum after
+        # its probe, outside it
+        assert [c for n, c in spans if n == "tpujoin.colsums"] == [join]
+        assert names.index("tpujoin.colsums") < names.index("tpujoin.sort")
+        assert [c for n, c in spans if n == "tpujoin.reduce"] == [join]
+        assert names.index("tpujoin.reduce") > names.index("tpujoin.probe")
+    else:
+        assert "tpujoin.colsums" not in names
+        assert "tpujoin.reduce" not in names
     if query == "materialize":
         assert [c for n, c in spans if n == "tpujoin.extract"] == [join]
         extract = ("tpujoin.extract",) + join
@@ -174,6 +184,22 @@ def test_counts_are_the_difference_across_the_call():
         for table in tables:
             for name in table:
                 _launches.count(table, name, saved[name])
+
+
+@pytest.mark.parametrize("mode", ["blocked", "sort_merge"])
+def test_partitioned_late_aggregate_spans_its_column_sums(mode):
+    """Off the banded path a late aggregate's column sums, at the
+    partitioned row ids, are one `tpujoin.colsums` span inside its join
+    phase; there is no add-mode sum."""
+    call, _ = _call("late_aggregate", "pkfk")
+    engine = ClusteredJoin(EngineConfig(probe_mode=mode), device="cpu")
+    call = functools.partial(getattr(engine, call.func.__name__), *call.args)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        call()
+    spans = _spans(prof)
+    assert [c for n, c in spans if n == "tpujoin.colsums"] == [("tpujoin.join",)]
+    assert "tpujoin.reduce" not in [n for n, _ in spans]
 
 
 def test_partitioned_modes_count_their_answer_reads():
