@@ -287,7 +287,8 @@ from icde2019_gpu_join_tpu_torch.models import (ClusteredJoin,
                                                 dispatch_regime, pipelines)
 from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
                                              groupby, merge, perfect_hash,
-                                             probe_ranges, radix_pairs)
+                                             probe_ranges, radix_pairs,
+                                             row_colsums)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.parallel import dist_join, dryrun
@@ -431,8 +432,8 @@ def _oracle_value(scale: int, skew: float) -> int:
 
 
 # the modules whose wrappers count their kernels' launches
-COUNTED = (band_compare, probe_ranges, merge, radix_pairs, experimental_sort,
-           merge_sort_bench, construct_probes)
+COUNTED = (band_compare, probe_ranges, merge, radix_pairs, row_colsums,
+           experimental_sort, merge_sort_bench, construct_probes)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -749,6 +750,7 @@ def phase_build():
         construct_probes._kernel(name)
     for name in radix_pairs.LAUNCHES:
         radix_pairs._kernel(name)
+    row_colsums._kernel()
     if datagen.native_lib() is None:
         raise RuntimeError("native host library did not load")
     print(f"[build] kernels {t_kernels:.2f}s ({_build.KERNEL_LIB}) "
@@ -2184,7 +2186,41 @@ def phase_coprocess(big) -> int:
     return out["launches"]["banded_window_sum"]
 
 
+def _colsum_kernel():
+    """The column-sum kernel against its plain version at the late cell's
+    2^27 rows, 4 and 2 columns, ids in order and shuffled, and its time
+    alone beside its bound (each id and column read once, one int32
+    written) and the plain version's."""
+    n = 1 << HEADLINE_SCALE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    in_order = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    shuffled = torch.randperm(n, generator=gen, device=DEVICE).to(torch.int32)
+    for c in (4, 2):
+        cols = torch.randint(-2**31, 2**31 - 1, (n, c), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+        for ids, order in ((in_order, "in order"), (shuffled, "shuffled")):
+            what = f"row_colsums at 2^{HEADLINE_SCALE} x {c}, ids {order}"
+            got, launches = _launched(lambda: row_colsums.row_colsums(cols, ids))
+            if launches["row_colsums"] != 1:
+                raise AssertionError(f"{what}: launches {launches}")
+            if not torch.equal(got, row_colsums.torch_row_colsums(cols, ids)):
+                raise AssertionError(f"{what}: != the plain version")
+            del got
+            ms = _time_ms(lambda: row_colsums.row_colsums(cols, ids), 20)
+            plain_ms = _time_ms(lambda: row_colsums.torch_row_colsums(cols, ids), 3)
+            bound_ms = (4 * c + 8) * n / CARD["hbm_bytes_per_s"] * 1e3
+            print(f"[late] {what}: equal to plain; kernel {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({4 * c + 8} B a row, "
+                  f"{100 * bound_ms / ms:.2f}%), plain {plain_ms:.4f} ms",
+                  flush=True)
+        del cols
+    del in_order, shuffled
+    torch.cuda.empty_cache()
+
+
 def phase_late():
+    _colsum_kernel()
     engine = ClusteredJoin(device=DEVICE)
     n = 1 << MID_SCALE
     rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
@@ -2197,6 +2233,7 @@ def phase_late():
     rc, sc = (torch.from_numpy(c).to(DEVICE) for c in (r_cols, s_cols))
     res, launches = _launched(lambda: engine.late_aggregate(r, s, rc, sc))
     _require_windowed_per_s(launches, "late")
+    _require(launches, "late", "row_colsums")
     t, agg = _best_s(lambda: engine.late_aggregate(r, s, rc, sc).aggregate)
     ids = np.arange(n, dtype=np.int32)
     want = oracle.join_late_materialize_sum(rk, ids, sk, ids, r_cols, s_cols)

@@ -74,8 +74,8 @@ from icde2019_gpu_join_tpu_torch import cli, datagen
 from icde2019_gpu_join_tpu_torch.benchmarks import bench
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
-from icde2019_gpu_join_tpu_torch.models.joins import _row_colsums
-from icde2019_gpu_join_tpu_torch.ops import band_compare, band_join, probe_ranges
+from icde2019_gpu_join_tpu_torch.ops import (band_compare, band_join,
+                                             probe_ranges, row_colsums)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.relation import Relation
@@ -380,7 +380,8 @@ def late_steps(log2n: int, reps: int, device) -> List[dict]:
         ev = [_event(device) for _ in range(5)]
         with kernel_events(device) as calls:
             ev[0].record()
-            r_c, s_c = _row_colsums(rc, r.payload), _row_colsums(sc, s.payload)
+            r_c = row_colsums.row_colsums(rc, r.payload)
+            s_c = row_colsums.row_colsums(sc, s.payload)
             ev[1].record()
             r_sv, r_p = band_join.sort_by_key(r.keys, r_c)
             s_sv, s_p = band_join.sort_by_key(s.keys, s_c)

@@ -43,7 +43,7 @@ import torch
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.ops import _launches, band_compare, merge
 from icde2019_gpu_join_tpu_torch.ops import probe as probe_ops
-from icde2019_gpu_join_tpu_torch.ops import probe_ranges
+from icde2019_gpu_join_tpu_torch.ops import probe_ranges, row_colsums
 from icde2019_gpu_join_tpu_torch.ops.band_join import (
     SORT_IMPLS,
     banded_join_aggregate,
@@ -78,7 +78,7 @@ class JoinResult:
 
 # the counters a `ClusteredJoin` call reports on its result
 _COUNTERS = (_launches.EVENTS, band_compare.LAUNCHES, merge.LAUNCHES,
-             probe_ranges.LAUNCHES)
+             probe_ranges.LAUNCHES, row_colsums.LAUNCHES)
 
 
 def _counted(method):
@@ -107,22 +107,13 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
                                  or a.index == b.index)
 
 
-def _row_colsums(cols: torch.Tensor, rowid: torch.Tensor) -> torch.Tensor:
-    """Per-row sum of `cols` [n, c] mod 2^32, gathered at the row ids; 0s
-    when there are no columns. Row ids are read as JAX indexes: negative
-    ones count from the end, then every id is clamped into range."""
-    if cols.numel() == 0:
-        return torch.zeros_like(rowid)
-    n = cols.shape[0]
-    idx = torch.where(rowid < 0, rowid.long() + n, rowid.long()).clamp_(0, n - 1)
-    return wrap_i32(cols.sum(1))[idx]
-
-
 def _colsums(r_cols: torch.Tensor, r_ids: torch.Tensor, s_cols: torch.Tensor,
              s_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both sides' `_row_colsums`, in one `tpujoin.colsums` span."""
+    """Both sides' column sums at their row ids (`ops/row_colsums.py`), in
+    one `tpujoin.colsums` span."""
     with profiling.annotate("tpujoin.colsums"):
-        return _row_colsums(r_cols, r_ids), _row_colsums(s_cols, s_ids)
+        return (row_colsums.row_colsums(r_cols, r_ids),
+                row_colsums.row_colsums(s_cols, s_ids))
 
 
 class ClusteredJoin:
