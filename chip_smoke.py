@@ -285,10 +285,10 @@ from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import (ClusteredJoin,
                                                 clustered_probe_join,
                                                 dispatch_regime, pipelines)
-from icde2019_gpu_join_tpu_torch.ops import (_build, band_compare, band_join,
-                                             groupby, merge, perfect_hash,
-                                             probe_ranges, radix_pairs,
-                                             row_colsums)
+from icde2019_gpu_join_tpu_torch.ops import (_build, _launches, band_compare,
+                                             band_join, groupby, merge,
+                                             perfect_hash, probe_ranges,
+                                             radix_pairs, row_colsums)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.parallel import dist_join, dryrun
@@ -431,9 +431,6 @@ def _oracle_value(scale: int, skew: float) -> int:
         return int(json.load(f)["aggregate"])
 
 
-# the modules whose wrappers count their kernels' launches
-COUNTED = (band_compare, probe_ranges, merge, radix_pairs, row_colsums,
-           experimental_sort, merge_sort_bench, construct_probes)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -454,16 +451,13 @@ def _best_s(fn, reps: int = REPS):
 
 
 def _launched(fn):
-    """Zero the launch counts, run fn once (synchronised), and return
-    (fn's result, the launch counts of that run, every kernel)."""
-    for module in COUNTED:
-        module.reset_launches()
+    """Zero the counters, run fn once (synchronised), and return (fn's
+    result, the counts of that run: every registered table of
+    `ops/_launches.py`)."""
+    _launches.reset()
     out = fn()
     torch.cuda.synchronize()
-    counts = {}
-    for module in COUNTED:
-        counts.update(module.LAUNCHES)
-    return out, counts
+    return out, _launches.snapshot()
 
 
 def _bound(nbytes: int, int_ops: int) -> dict:
@@ -738,19 +732,10 @@ def phase_build():
         kernels = pool.submit(_build.build_kernels)
         host = pool.submit(_build.build_host)
         t_kernels, t_host = kernels.result(), host.result()
-    for name in KERNELS:
-        band_compare._kernel(name)  # loads the library and binds the symbol
-    probe_ranges._kernel()
-    for name in ("merge_levels", "merge_level_plan", "merge_level_hbm"):
-        merge._kernel(name)
-    for name in ("chunks", "strided"):
-        experimental_sort._kernel(name)
-    merge_sort_bench._kernel()
-    for name in construct_probes.ENTRY_POINTS:
-        construct_probes._kernel(name)
-    for name in radix_pairs.LAUNCHES:
-        radix_pairs._kernel(name)
-    row_colsums._kernel()
+    # load the library and bind every entry point the registered wrappers
+    # launch, in the form their launches bind
+    for name, (pointers, ints) in _launches.entries().items():
+        _build.entry(name, pointers, ints)
     if datagen.native_lib() is None:
         raise RuntimeError("native host library did not load")
     print(f"[build] kernels {t_kernels:.2f}s ({_build.KERNEL_LIB}) "
@@ -1230,7 +1215,7 @@ def phase_kernel_merge() -> dict:
           + f", beside {first['ms']:.4f} / {last['ms']:.4f} at 8192")
 
     # the whole sorts
-    merge.reset_launches()
+    _launches.reset(merge.LAUNCHES, merge.ROUTES)
     got = merge.merge_sort_pairs(sv, pv)
     _check_sorted_pairs(got, sv, pv, "merge_sort_pairs")
     if merge.ROUTES != {"cascade": 1, "fallback": 0}:

@@ -31,9 +31,9 @@ because a TPU has no scatter and sorts by comparing; a card scatters, and
 card's integer rate it is 18.2 ms a side at 2^27, and the share would read
 above 1. The probe's 256 ops a row are 128 window slots at 2 ops each, the
 banded kernel's count. vs_sort_frontier is both sides at the sort rate
-measured in the same run (one `torch.sort` of 2^scale sort values + the
-payload gather, the engine's "lax" sort, best of 3 by CUDA events) plus the
-probe SOL. vs_scatter_sol is the reference's radix-hash-join bound, 40 B a
+measured in the same run (one sort of 2^scale (sort value, payload) pairs
+by the engine's "lax" sort, `radix_sort_pairs`, best of 3 by CUDA events)
+plus the probe SOL. vs_scatter_sol is the reference's radix-hash-join bound, 40 B a
 row over BW: on a card that scatters it is a real bound. On the CPU there
 is no card to take rates from: the shares and the sort rate are null, and
 hbm_gbps is the CPU's 50.0.
@@ -59,7 +59,7 @@ import torch
 from icde2019_gpu_join_tpu_torch import datagen
 from icde2019_gpu_join_tpu_torch.config import EngineConfig
 from icde2019_gpu_join_tpu_torch.models.joins import ClusteredJoin
-from icde2019_gpu_join_tpu_torch.ops.merge import torch_sort_pairs
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import radix_sort_pairs
 from icde2019_gpu_join_tpu_torch.relation import Relation
 from icde2019_gpu_join_tpu_torch.utils import datasets
 from icde2019_gpu_join_tpu_torch.utils.timing import (best_ms, detect_hbm_gbps,
@@ -145,10 +145,10 @@ def shares(n_r: int, n_s: int, elapsed: float, hbm_gbps: float,
 
 
 def sort_frontier_rows_s(keys: torch.Tensor, pays: torch.Tensor) -> float:
-    """Rows a second of the engine's "lax" sort on the card: `torch.sort`
-    of the keys as sort values + the payload gather, best of 3 by CUDA
+    """Rows a second of the engine's "lax" sort on the card, the radix pair
+    sort of the keys as sort values and their payloads, best of 3 by CUDA
     events."""
-    ms = best_ms(lambda: torch_sort_pairs(keys, pays), keys.device, reps=3)
+    ms = best_ms(lambda: radix_sort_pairs(keys, pays), keys.device, reps=3)
     return keys.shape[0] / ms * 1e3
 
 

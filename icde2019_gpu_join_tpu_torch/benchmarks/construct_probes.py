@@ -86,7 +86,7 @@ import ctypes
 import functools
 import json
 import sys
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,12 +135,11 @@ OPS_PER_EXCHANGE = 5
 # the launches a device time is the mean of
 DEVICE_REPS = 50
 
-# Probe kernels launched since the last reset.
-LAUNCHES: Dict[str, int] = {"construct_probes": 0}
-
-
-def reset_launches():
-    _launches.reset(LAUNCHES)
+# Probe kernels launched since the last reset. Every entry point
+# `tj_probe_<name>` takes 4 pointers (meta, a, b, o) and one int64, then a
+# stream.
+LAUNCHES = _launches.table(__name__, ("construct_probes",),
+                           {f"probe_{name}": (4, 1) for name in ENTRY_POINTS})
 
 
 # ---------------------------------------------------------------------------
@@ -264,25 +263,14 @@ def _check_block(name: str, x: torch.Tensor, rows: Optional[int], like=None):
                          f"load 16 bytes at a time)")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(entry: str):
-    """The C entry point `tj_probe_<entry>`; all share one signature."""
-    fn = getattr(_build.kernel_lib(), f"tj_probe_{entry}")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(entry: str, o: torch.Tensor, meta=None, a=None, b=None,
             arg: int = 0, counted: bool = True) -> torch.Tensor:
+    null = _launches.Address(0)
+    pointers = tuple(null if x is None else x for x in (meta, a, b)) + (o,)
     with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(entry)(*(None if x is None else x.data_ptr()
-                               for x in (meta, a, b)), o.data_ptr(), arg,
-                             stream)
-    if err != 0:
-        raise RuntimeError(f"tj_probe_{entry} launch failed: CUDA error {err}")
-    _launches.count(LAUNCHES, "construct_probes", counted)
+        _launches.launch(LAUNCHES if counted else None, f"probe_{entry}",
+                         pointers, arg, counter="construct_probes",
+                         stream=torch.cuda.current_stream().cuda_stream)
     return o
 
 
@@ -294,9 +282,8 @@ def form(name: str) -> dict:
     CUDA error."""
     if name not in LADDERS:
         raise ValueError(f"{name}: not a probe on the ladders' kernel")
-    fn = _build.kernel_lib().tj_probe_form
-    fn.argtypes = [ctypes.c_char_p] + [ctypes.POINTER(ctypes.c_int)] * 3
-    fn.restype = ctypes.c_int
+    fn = _build.entry("probe_form", args=(ctypes.c_char_p,)
+                      + (ctypes.POINTER(ctypes.c_int),) * 3)
     ctas, cluster, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = fn(name.encode(), ctypes.byref(ctas), ctypes.byref(cluster),
              ctypes.byref(clusters))

@@ -38,17 +38,15 @@ the calls that launched.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict, List, NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, _launches
-from icde2019_gpu_join_tpu_torch.ops.merge import (_check_aligned,
-                                                   _check_pairs, _is_pow2)
+from icde2019_gpu_join_tpu_torch.ops import _launches
+from icde2019_gpu_join_tpu_torch.ops.merge import _check_aligned, _is_pow2
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import check_pairs
 
 DEFAULT_TILE = 1 << 20
 MIN_TILE = 1024
@@ -57,18 +55,17 @@ LOG_BLOCK = 14           # log2 of the most pairs one thread block holds
 LOG_PASS = 13            # log2 of a block's pairs in a pass of a merge k > 14
 MAX_STRIDED_BITS = 7     # stage bits of one strided pass: segments >= 128
 
-# Calls of `sort_tiles` that launched the kernel since the last reset.
-LAUNCHES: Dict[str, int] = {"sort_tiles": 0}
-
-
-def reset_launches():
-    _launches.reset(LAUNCHES)
+# Calls of `sort_tiles` that launched the kernel since the last reset. With
+# the C entry points of the two launch kinds' (pointers, int64 values); a
+# stream follows them.
+LAUNCHES = _launches.table(__name__, ("sort_tiles",),
+                           {"sort_chunks": (4, 5), "sort_strided": (2, 6)})
 
 
 def _check(sv: torch.Tensor, pay: torch.Tensor, tile_elems: int):
     """The reference's contract (its assertion, and its docstring's lower
     bound on the tile)."""
-    _check_pairs(sv, pay)
+    check_pairs(sv, pay)
     if not _is_pow2(tile_elems) or tile_elems < MIN_TILE:
         raise ValueError(f"tile_elems must be a power of two >= {MIN_TILE}, "
                          f"got {tile_elems}")
@@ -166,18 +163,6 @@ def strided_block_elements(block: int, bit_hi: int, bit_lo: int) -> np.ndarray:
             | ((local >> seg_log) << bit_lo))
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(kind: str):
-    """The C entry point of one launch kind, bound with its argument
-    types."""
-    fn = getattr(_build.kernel_lib(), f"tj_sort_{kind}")
-    pointers, sizes = {"chunks": (4, 5), "strided": (2, 6)}[kind]
-    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int64] * sizes
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def sort_tiles(sv: torch.Tensor, pay: torch.Tensor,
                tile_elems: int = DEFAULT_TILE, unroll: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -198,22 +183,18 @@ def sort_tiles(sv: torch.Tensor, pay: torch.Tensor,
     _check_aligned(("sv", sv), ("pay", pay))
     n, log_tile = sv.shape[0], tile_elems.bit_length() - 1
     osv, opay = torch.empty_like(sv), torch.empty_like(pay)
-    out = (osv.data_ptr(), opay.data_ptr())
-    src = (sv.data_ptr(), pay.data_ptr())
+    out, src = (osv, opay), (sv, pay)
     with torch.cuda.device(sv.device):
         stream = torch.cuda.current_stream().cuda_stream
         for launch in launch_schedule(log_tile):
             if launch.kind == "chunks":
-                err = _kernel("chunks")(*src, *out, n, log_tile,
-                                        launch.log_block, launch.k_lo,
-                                        launch.k_hi, stream)
+                args = ((*src, *out), n, log_tile, launch.log_block,
+                        launch.k_lo, launch.k_hi)
             else:
-                err = _kernel("strided")(
-                    *out, n, log_tile, launch.log_block, launch.bit_lo,
-                    launch.bit_hi - launch.bit_lo + 1, launch.k_lo, stream)
-            if err != 0:
-                raise RuntimeError(f"tj_sort_{launch.kind} launch failed at "
-                                   f"{launch}: CUDA error {err}")
+                args = (out, n, log_tile, launch.log_block, launch.bit_lo,
+                        launch.bit_hi - launch.bit_lo + 1, launch.k_lo)
+            _launches.launch(None, f"sort_{launch.kind}", *args,
+                             stream=stream, context=f"at {launch}")
             src = out
     _launches.count(LAUNCHES, "sort_tiles")
     return osv, opay

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from icde2019_gpu_join_tpu_torch.ops import merge
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import torch_sort_pairs
 from icde2019_gpu_join_tpu_torch.utils.timing import best_ms
 
 
@@ -57,7 +58,7 @@ def validate(lg: int, device="cuda") -> Tuple[dict, Optional[dict]]:
     t_first = time.perf_counter() - t0
     took_cascade = merge.ROUTES["cascade"] == routes["cascade"] + 1
 
-    es, ep = merge.torch_sort_pairs(sv, pv)
+    es, ep = torch_sort_pairs(sv, pv)
     keys_ok = bool(torch.equal(gs, es))
     pairs_ok = bool(torch.equal(_words(gs, gp), _words(es, ep)))
     check = {"check": "merge_fix_correct", "n": n, "keys_ok": keys_ok,
@@ -68,7 +69,7 @@ def validate(lg: int, device="cuda") -> Tuple[dict, Optional[dict]]:
         return check, None
 
     t_merge = best_ms(lambda: merge.merge_sort_pairs(sv, pv), device)
-    t_lax = best_ms(lambda: merge.torch_sort_pairs(sv, pv), device)
+    t_lax = best_ms(lambda: torch_sort_pairs(sv, pv), device)
     speed = {"check": "merge_fix_speed", "n": n,
              "merge_ms": t_merge, "lax_ms": t_lax,
              "merge_Mrows_s": n / t_merge / 1e3,

@@ -44,32 +44,30 @@ Prints one JSON line per measurement and exits 1 on a wrong result.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import functools
 import json
 import sys
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, _launches, merge
+from icde2019_gpu_join_tpu_torch.ops import _launches, merge
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import (check_pairs,
+                                                         torch_sort_pairs)
 from icde2019_gpu_join_tpu_torch.utils.timing import best_ms
 
 REPS = 24
 LANES = 128
 REF_TILE = 1 << 18    # the reference's tile: pairs a TPU tile holds
 
-# Calls of `stage_reps` that launched the kernel since the last reset.
-LAUNCHES: Dict[str, int] = {"stage_reps": 0}
-
-
-def reset_launches():
-    _launches.reset(LAUNCHES)
+# Calls of `stage_reps` that launched the kernel since the last reset. With
+# the C entry point's (pointers, int64 values); a stream follows them.
+LAUNCHES = _launches.table(__name__, ("stage_reps",), {"stage_reps": (4, 4)})
 
 
 def _check(sv, pv, d: int, reps: int, tile: int):
-    merge._check_pairs(sv, pv)
+    check_pairs(sv, pv)
     n = sv.shape[0]
     if not (merge._is_pow2(d) and merge._is_pow2(tile) and tile >= LANES
             and 2 * d <= tile and reps >= 1):
@@ -91,15 +89,6 @@ def stage_reps_ref(sv: torch.Tensor, pv: torch.Tensor, d: int, reps: int,
     return sv.view(-1, LANES), pv.view(-1, LANES)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.kernel_lib().tj_stage_reps
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def stage_reps(sv: torch.Tensor, pv: torch.Tensor, d: int, reps: int,
                tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """`reps` times one compare-exchange stage at distance d (strict <, a
@@ -112,13 +101,8 @@ def stage_reps(sv: torch.Tensor, pv: torch.Tensor, d: int, reps: int,
     if not sv.is_cuda:
         return stage_reps_ref(sv, pv, d, reps, tile)
     osv, opv = torch.empty_like(sv), torch.empty_like(pv)
-    with torch.cuda.device(sv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(sv.data_ptr(), pv.data_ptr(), osv.data_ptr(),
-                        opv.data_ptr(), sv.shape[0], d, reps, tile, stream)
-    if err != 0:
-        raise RuntimeError(f"tj_stage_reps launch failed: CUDA error {err}")
-    _launches.count(LAUNCHES, "stage_reps")
+    _launches.launch(LAUNCHES, "stage_reps", (sv, pv, osv, opv), sv.shape[0],
+                     d, reps, tile)
     return osv.view(-1, LANES), opv.view(-1, LANES)
 
 
@@ -178,10 +162,10 @@ def bench_stages(lg: int, device="cuda") -> dict:
 def bench_packed(lg: int, device="cuda") -> dict:
     n = 1 << lg
     kd, vd = _pairs(n, -2**31, 2**31, device)
-    t2 = best_ms(lambda: merge.torch_sort_pairs(kd, vd), device)
+    t2 = best_ms(lambda: torch_sort_pairs(kd, vd), device)
     tp = best_ms(lambda: merge.packed_sort_pairs(kd, vd), device)
     ko, _ = merge.packed_sort_pairs(kd, vd)
-    ks, _ = merge.torch_sort_pairs(kd, vd)
+    ks, _ = torch_sort_pairs(kd, vd)
     res = {"bench": "packed", "n": n,
            "two_op_ms": t2, "two_op_Mrows_s": n / t2 / 1e3,
            "packed_ms": tp, "packed_Mrows_s": n / tp / 1e3,
@@ -201,10 +185,10 @@ def bench_full(lg: int, device="cuda") -> dict:
     n = 1 << lg
     # keys in [-2^30, 2^30): none is a masking sentinel of the cascade
     kd, vd = _pairs(n, -2**30, 2**30, device)
-    t2 = best_ms(lambda: merge.torch_sort_pairs(kd, vd), device)
+    t2 = best_ms(lambda: torch_sort_pairs(kd, vd), device)
     res = {"bench": "full", "n": n, "lax_ms": t2, "lax_Mrows_s": n / t2 / 1e3,
            "same_launches_as_merge": ["merge_nodb", "merge_lt"]}
-    ks, _ = merge.torch_sort_pairs(kd, vd)
+    ks, _ = torch_sort_pairs(kd, vd)
     for name, geometry in FULL_VARIANTS:
         fn = functools.partial(merge._merge_sort_cascade, kd, vd, **geometry)
         try:

@@ -74,8 +74,9 @@ from icde2019_gpu_join_tpu_torch import cli, datagen
 from icde2019_gpu_join_tpu_torch.benchmarks import bench
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
-from icde2019_gpu_join_tpu_torch.ops import (band_compare, band_join,
-                                             probe_ranges, row_colsums)
+from icde2019_gpu_join_tpu_torch.ops import (_launches, band_compare,
+                                             band_join, probe_ranges,
+                                             row_colsums)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.relation import Relation
@@ -454,14 +455,11 @@ def kernel5_launch(cols, s_start, s_nch, tile_r: int = RANGE_TILE,
     tile, s0 = probe_ranges._items(s_start, s_nch, cols[2].shape[0], tile_s)
     tile_d, s0_d = (torch.from_numpy(a).to(dev) for a in (tile, s0))
     out = torch.zeros(1, dtype=torch.int32, device=dev)
-    fn = probe_ranges._kernel()
 
     def launch():
-        err = fn(*(c.data_ptr() for c in cols), tile_d.data_ptr(),
-                 s0_d.data_ptr(), out.data_ptr(), tile.size, tile_r, tile_s,
-                 torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"tj_probe_aggregate_ranges: CUDA error {err}")
+        _launches.launch(None, "probe_aggregate_ranges",
+                         (*cols, tile_d, s0_d, out), tile.size, tile_r, tile_s,
+                         stream=torch.cuda.current_stream(dev).cuda_stream)
         return out
     return launch
 

@@ -29,35 +29,24 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i32p = ctypes.POINTER(ctypes.c_int32)
-    lib.tj_seed.argtypes = [ctypes.c_uint]
-    lib.tj_seed.restype = None
-    lib.tj_random_gen.argtypes = [i32p, ctypes.c_uint64, ctypes.c_int64]
-    lib.tj_random_gen.restype = None
-    lib.tj_random_unique_gen.argtypes = [i32p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_uint]
-    lib.tj_random_unique_gen.restype = None
-    lib.tj_fk_from_pk.argtypes = [i32p, ctypes.c_uint64, i32p, ctypes.c_uint64]
-    lib.tj_fk_from_pk.restype = None
-    lib.tj_gen_zipf.argtypes = [i32p, ctypes.c_uint64, ctypes.c_uint, ctypes.c_double]
-    lib.tj_gen_zipf.restype = None
-    lib.tj_oracle_join_aggregate.argtypes = [
-        i32p, i32p, ctypes.c_uint64, i32p, i32p, ctypes.c_uint64,
-    ]
-    lib.tj_oracle_join_aggregate.restype = ctypes.c_int32
     u64p = ctypes.POINTER(ctypes.c_uint64)
-    lib.tj_host_partition.argtypes = [
-        i32p, i32p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        i32p, i32p, u64p, u64p,
-    ]
-    lib.tj_host_partition.restype = None
-    lib.tj_staging_copy.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
-    ]
-    lib.tj_staging_copy.restype = None
-    lib.tj_knapsack_batches.argtypes = [
-        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int),
-    ]
-    lib.tj_knapsack_batches.restype = ctypes.c_int
+    u64, i64, uint, cint = (ctypes.c_uint64, ctypes.c_int64, ctypes.c_uint,
+                            ctypes.c_int)
+    for name, args, returns in (
+            ("seed", (uint,), None),
+            ("random_gen", (i32p, u64, i64), None),
+            ("random_unique_gen", (i32p, u64, i64, uint), None),
+            ("fk_from_pk", (i32p, u64, i32p, u64), None),
+            ("gen_zipf", (i32p, u64, uint, ctypes.c_double), None),
+            ("oracle_join_aggregate", (i32p, i32p, u64, i32p, i32p, u64),
+             ctypes.c_int32),
+            ("host_partition", (i32p, i32p, u64, cint, cint, cint, i32p, i32p,
+                                u64p, u64p), None),
+            ("staging_copy", (ctypes.c_void_p, ctypes.c_void_p, u64, cint),
+             None),
+            ("knapsack_batches", (ctypes.POINTER(ctypes.c_double), cint, cint,
+                                  ctypes.POINTER(cint)), cint)):
+        _build.entry(name, args=args, returns=returns, lib=lib)
     return lib
 
 

@@ -41,7 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from icde2019_gpu_join_tpu_torch.config import EngineConfig, default_bits_for
-from icde2019_gpu_join_tpu_torch.ops import _launches, band_compare, merge
+from icde2019_gpu_join_tpu_torch.ops import _launches
 from icde2019_gpu_join_tpu_torch.ops import probe as probe_ops
 from icde2019_gpu_join_tpu_torch.ops import probe_ranges, row_colsums
 from icde2019_gpu_join_tpu_torch.ops.band_join import (
@@ -71,14 +71,9 @@ class JoinResult:
     count: Optional[int] = None
     pairs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     timer: Optional[PhaseTimer] = None
-    # what the call counted (`ClusteredJoin`): `_launches.EVENTS` and the
-    # kernel launches of the engine's wrappers, by name
+    # what the call counted (`ClusteredJoin`): every table of the registry
+    # in `ops/_launches.py`, its events and kernel launches, by name
     counts: Optional[Dict[str, int]] = None
-
-
-# the counters a `ClusteredJoin` call reports on its result
-_COUNTERS = (_launches.EVENTS, band_compare.LAUNCHES, merge.LAUNCHES,
-             probe_ranges.LAUNCHES, row_colsums.LAUNCHES)
 
 
 def _counted(method):
@@ -87,10 +82,10 @@ def _counted(method):
     Calls on other threads meanwhile would add theirs."""
     @functools.wraps(method)
     def call(self, *args, **kwargs):
-        before = _launches.snapshot(*_COUNTERS)
+        before = _launches.snapshot()
         _launches.count(_launches.EVENTS, "queries")
         res = method(self, *args, **kwargs)
-        after = _launches.snapshot(*_COUNTERS)
+        after = _launches.snapshot()
         res.counts = {name: n - before[name] for name, n in after.items()}
         return res
     return call

@@ -11,11 +11,15 @@
 Both land in `icde2019_gpu_join_tpu_torch/_build/`. A library is rebuilt
 when one of its sources is newer than it. A failed build raises with the
 compiler's stderr. Nothing here runs at import time.
+
+`entry` binds a C entry point `tj_<name>` to its argument types: the one
+place that sets them for this package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import os
 import platform
@@ -23,7 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -141,3 +145,22 @@ def kernel_lib() -> ctypes.CDLL:
 def host_lib() -> ctypes.CDLL:
     """The host engine library, built on first use."""
     return _load(HOST_LIB, build_host)
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, pointers: int = 0, ints: int = 0, *,
+          args: Optional[Sequence] = None, returns=ctypes.c_int,
+          lib: Optional[ctypes.CDLL] = None):
+    """The C entry point `tj_<name>`, bound once to its argument types.
+
+    The common form, a kernel's launcher, takes `pointers` pointers, then
+    `ints` int64 values, then a stream, and returns a CUDA error code;
+    `args` spells out any other list (`returns` its result type). The entry
+    comes from the kernel library, built on first use, unless `lib` is
+    given."""
+    fn = getattr(kernel_lib() if lib is None else lib, f"tj_{name}")
+    if args is None:
+        args = ([ctypes.c_void_p] * pointers + [ctypes.c_int64] * ints
+                + [ctypes.c_void_p])
+    fn.argtypes, fn.restype = list(args), returns
+    return fn

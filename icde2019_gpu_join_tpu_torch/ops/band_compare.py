@@ -32,8 +32,8 @@ masked: its rp is 0, its key R_PAD_SV (`*_ref` spell the gathers out).
 
 On CUDA tensors each wrapper launches its kernel in `csrc/band_compare.cu`
 (built with nvcc at first use) and raises if it cannot; on CPU tensors it
-runs the plain version (`*_ref`). `LAUNCHES` counts kernel launches per
-kernel.
+runs the plain version (`*_ref`); a call of no chunk rows launches
+nothing. `LAUNCHES` counts kernel launches per kernel.
 
 Caller contract: R columns outside a window carry a key that matches
 nothing real and rp == 0; pad rows a sentinel key with payload 0.
@@ -41,33 +41,20 @@ nothing real and rp == 0; pad rows a sentinel key with payload 0.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, _launches
+from icde2019_gpu_join_tpu_torch.ops import _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 
 LANES = 128
 INT32_MAX = 0x7FFFFFFF
 R_PAD_SV = INT32_MAX   # sortval of the R-pad key -1: a masked window column
 
-# Kernel launches since the last reset, by kernel; only the CUDA path adds.
-LAUNCHES: Dict[str, int] = {
-    "banded_compare_sum": 0,
-    "banded_compare_per_s": 0,
-    "banded_compare_first": 0,
-    "banded_interval_select": 0,
-    "banded_window_sum": 0,
-    "banded_window_per_s": 0,
-    "banded_window_first": 0,
-}
-
 # Each C entry point's pointer arguments (inputs and outputs), then its
 # int64 arguments; a stream follows.
-_SIGNATURES = {
+_ENTRIES = {
     "banded_compare_sum": (5, 2),
     "banded_compare_per_s": (5, 2),
     "banded_compare_first": (5, 2),
@@ -77,13 +64,12 @@ _SIGNATURES = {
     "banded_window_first": (7, 5),
 }
 
+# Kernel launches since the last reset, by kernel; only the CUDA path adds.
+LAUNCHES = _launches.table(__name__, _ENTRIES, _ENTRIES)
+
 # A plain version walks a chunk in row steps whose [rows, 128, WB] compare
 # tensor holds at most this many elements.
 _REF_ELEMS = 1 << 26
-
-
-def reset_launches():
-    _launches.reset(LAUNCHES)
 
 
 def _row_steps(ch: int, wb: int):
@@ -287,31 +273,6 @@ def _check_window(s_side: dict, r_side: dict, ids, lo, hi, r, w,
     return nsb, nrb
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    """The C entry point `tj_<name>`, bound with its argument types."""
-    fn = getattr(_build.kernel_lib(), f"tj_{name}")
-    pointers, ints = _SIGNATURES[name]
-    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int64] * ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, tensors, *ints):
-    """Launch kernel `name` over tensors (inputs, then outputs) on the
-    current stream; the first int is the number of chunk rows, and no rows
-    launch nothing."""
-    if ints[0] == 0:
-        return
-    with torch.cuda.device(tensors[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(name)(*(x.data_ptr() for x in tensors), *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"tj_{name} launch failed: CUDA error {err}")
-    _launches.count(LAUNCHES, name)
-
-
 def banded_compare_sum(sk: torch.Tensor, sp: torch.Tensor,
                        rk: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
     """SUM over (i, l, j) of [sk==rk]*sp*rp for one chunk; int32 0-d tensor."""
@@ -319,7 +280,9 @@ def banded_compare_sum(sk: torch.Tensor, sp: torch.Tensor,
     if not sk.is_cuda:
         return banded_compare_sum_ref(sk, sp, rk, rp)
     out = torch.zeros(1, dtype=torch.int32, device=sk.device)
-    _launch("banded_compare_sum", (sk, sp, rk, rp, out), *rk.shape)
+    if rk.shape[0]:
+        _launches.launch(LAUNCHES, "banded_compare_sum", (sk, sp, rk, rp, out),
+                         *rk.shape)
     return out[0]
 
 
@@ -330,7 +293,9 @@ def banded_compare_per_s(sk: torch.Tensor, rk: torch.Tensor,
     if not sk.is_cuda:
         return banded_compare_per_s_ref(sk, rk, rp)
     h, t = torch.empty_like(sk), torch.empty_like(sk)
-    _launch("banded_compare_per_s", (sk, rk, rp, h, t), *rk.shape)
+    if rk.shape[0]:
+        _launches.launch(LAUNCHES, "banded_compare_per_s", (sk, rk, rp, h, t),
+                         *rk.shape)
     return h, t
 
 
@@ -341,7 +306,9 @@ def banded_compare_first(sk: torch.Tensor, rk: torch.Tensor,
     if not sk.is_cuda:
         return banded_compare_first_ref(sk, rk, gidx)
     h, fm = torch.empty_like(sk), torch.empty_like(sk)
-    _launch("banded_compare_first", (sk, rk, gidx, h, fm), *rk.shape)
+    if rk.shape[0]:
+        _launches.launch(LAUNCHES, "banded_compare_first",
+                         (sk, rk, gidx, h, fm), *rk.shape)
     return h, fm
 
 
@@ -352,8 +319,9 @@ def banded_interval_select(pos, lo, hi, p1, p2, p3):
     if not pos.is_cuda:
         return banded_interval_select_ref(pos, lo, hi, p1, p2, p3)
     outs = tuple(torch.empty_like(pos) for _ in range(3))
-    _launch("banded_interval_select", (pos, lo, hi, p1, p2, p3, *outs),
-            *lo.shape)
+    if lo.shape[0]:
+        _launches.launch(LAUNCHES, "banded_interval_select",
+                         (pos, lo, hi, p1, p2, p3, *outs), *lo.shape)
     return outs
 
 
@@ -369,8 +337,10 @@ def banded_window_sum(s_svb: torch.Tensor, s_payb: torch.Tensor,
     if not ids.is_cuda:
         return banded_window_sum_ref(s_svb, s_payb, r_svb, r_payb, ids, lo, hi,
                                      r, w, acc)
-    _launch("banded_window_sum", (s_svb, s_payb, r_svb, r_payb, ids, lo, hi,
-                                  acc), ids.numel(), nsb, nrb, r, w)
+    if ids.numel():
+        _launches.launch(LAUNCHES, "banded_window_sum",
+                         (s_svb, s_payb, r_svb, r_payb, ids, lo, hi, acc),
+                         ids.numel(), nsb, nrb, r, w)
     return acc
 
 
@@ -387,8 +357,10 @@ def banded_window_per_s(s_svb: torch.Tensor, r_svb: torch.Tensor,
     if not ids.is_cuda:
         return banded_window_per_s_ref(s_svb, r_svb, r_payb, ids, lo, hi, r, w,
                                        h, t)
-    _launch("banded_window_per_s", (s_svb, r_svb, r_payb, ids, lo, hi, h, t),
-            ids.numel(), nsb, nrb, r, w)
+    if ids.numel():
+        _launches.launch(LAUNCHES, "banded_window_per_s",
+                         (s_svb, r_svb, r_payb, ids, lo, hi, h, t),
+                         ids.numel(), nsb, nrb, r, w)
     return h, t
 
 
@@ -402,6 +374,8 @@ def banded_window_first(s_svb: torch.Tensor, r_svb: torch.Tensor,
                              {"r_svb": r_svb}, ids, lo, hi, r, w)
     if not ids.is_cuda:
         return banded_window_first_ref(s_svb, r_svb, ids, lo, hi, r, w, h, fm)
-    _launch("banded_window_first", (s_svb, r_svb, ids, lo, hi, h, fm),
-            ids.numel(), nsb, nrb, r, w)
+    if ids.numel():
+        _launches.launch(LAUNCHES, "banded_window_first",
+                         (s_svb, r_svb, ids, lo, hi, h, fm), ids.numel(), nsb,
+                         nrb, r, w)
     return h, fm

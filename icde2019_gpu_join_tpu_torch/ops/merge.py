@@ -54,21 +54,15 @@ at first use) or raise; on CPU tensors they run the plain versions (`*_ref`,
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, _launches
+from icde2019_gpu_join_tpu_torch.ops import _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
-# `torch_sort_pairs`, the library sort, is re-exported for the sort tools
-from icde2019_gpu_join_tpu_torch.ops.radix_pairs import (  # noqa: F401
-    check_pairs as _check_pairs,
-    radix_sort_pairs,
-    torch_sort_pairs,
-)
+from icde2019_gpu_join_tpu_torch.ops.radix_pairs import (check_pairs,
+                                                         radix_sort_pairs)
 from icde2019_gpu_join_tpu_torch.utils import profiling
 
 INT_MIN = -0x80000000
@@ -91,19 +85,17 @@ CASCADE_MAX_N = 1 << 27
 MAX_BLOCK_ELEMS = 1 << 14
 
 # Kernel launches since the last reset, by kernel; only the CUDA path adds.
-LAUNCHES: Dict[str, int] = {"merge_levels_vmem": 0, "merge_level_plan": 0,
-                            "merge_level_hbm": 0}
+# With the C entry points' (pointers, int64 values); a stream follows them.
+LAUNCHES = _launches.table(
+    __name__, ("merge_levels_vmem", "merge_level_plan", "merge_level_hbm"),
+    {"merge_levels": (4, 3), "merge_level_plan": (2, 4),
+     "merge_level_hbm": (5, 3)})
 # Calls of `merge_sort_pairs` since the last reset, by the way they went.
-ROUTES: Dict[str, int] = {"cascade": 0, "fallback": 0}
+ROUTES = _launches.table(__name__, ("cascade", "fallback"))
 
 # The plain version of the merge-path level walks the tiles in batches whose
 # [tiles, 2 * window] arrays hold at most this many elements.
 _REF_ELEMS = 1 << 24
-
-
-def reset_launches():
-    """Zero the launch counts and the route counts."""
-    _launches.reset(LAUNCHES, ROUTES)
 
 
 def _is_pow2(x: int) -> bool:
@@ -174,7 +166,7 @@ def _run_parity_mask(n: int, run_len: int, device) -> torch.Tensor:
 
 def _check_levels(sv, pv, run_len: int, levels: int, tile_elems: int) -> int:
     """The reference's contract; returns the output run length."""
-    _check_pairs(sv, pv)
+    check_pairs(sv, pv)
     n = sv.shape[0]
     span = run_len << levels
     tile = min(tile_elems, n)
@@ -207,27 +199,6 @@ def merge_levels_vmem_ref(sv: torch.Tensor, pv: torch.Tensor, run_len: int,
     return sv, pv
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    """The C entry point `tj_<name>`, bound with its argument types."""
-    fn = getattr(_build.kernel_lib(), f"tj_{name}")
-    pointers, sizes = {"merge_levels": (4, 3), "merge_level_plan": (2, 4),
-                       "merge_level_hbm": (5, 3)}[name]
-    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int64] * sizes
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, counter: str, tensors, *sizes: int):
-    with torch.cuda.device(tensors[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(name)(*(x.data_ptr() for x in tensors), *sizes, stream)
-    if err != 0:
-        raise RuntimeError(f"tj_{name} launch failed: CUDA error {err}")
-    _launches.count(LAUNCHES, counter)
-
-
 def merge_levels_vmem(sv: torch.Tensor, pv: torch.Tensor, run_len: int,
                       levels: int, tile_elems: int = DEVICE_VMEM_TILE
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -251,8 +222,8 @@ def merge_levels_vmem(sv: torch.Tensor, pv: torch.Tensor, run_len: int,
                          f"{MAX_BLOCK_ELEMS}); use merge_level_hbm")
     _check_aligned(("sv", sv), ("pv", pv))
     osv, opv = torch.empty_like(sv), torch.empty_like(pv)
-    _launch("merge_levels", "merge_levels_vmem", (sv, pv, osv, opv),
-            sv.shape[0], run_len, levels)
+    _launches.launch(LAUNCHES, "merge_levels", (sv, pv, osv, opv),
+                     sv.shape[0], run_len, levels, counter="merge_levels_vmem")
     return osv, opv
 
 
@@ -312,7 +283,7 @@ def _merge_path_splits(sv: torch.Tensor, run_len: int, tile_out: int):
 
 
 def _check_level(sv, pv, run_len: int, window: int):
-    _check_pairs(sv, pv)
+    check_pairs(sv, pv)
     if not (_is_pow2(run_len) and _is_pow2(window) and window >= 256):
         raise ValueError(f"run_len and window (>= 256) must be powers of "
                          f"two: {run_len}, {window}")
@@ -377,13 +348,13 @@ def merge_level_plan(sv: torch.Tensor, run_len: int,
         return merge_level_meta(sv, run_len, window)
     ntiles = level_tiles(sv.shape[0], run_len, window)
     meta = torch.empty((7, ntiles), dtype=torch.int32, device=sv.device)
-    _launch("merge_level_plan", "merge_level_plan", (sv, meta), sv.shape[0],
-            run_len, window, ntiles)
+    _launches.launch(LAUNCHES, "merge_level_plan", (sv, meta), sv.shape[0],
+                     run_len, window, ntiles)
     return meta
 
 
 def _check_tiles(sv, pv, meta: torch.Tensor, window: int):
-    _check_pairs(sv, pv)
+    check_pairs(sv, pv)
     if (meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[0] != 7
             or not meta.is_contiguous() or meta.device != sv.device):
         raise ValueError(f"meta: expected a contiguous int32 [7, ntiles] "
@@ -464,8 +435,8 @@ def merge_tiles(sv: torch.Tensor, pv: torch.Tensor, meta: torch.Tensor,
                          f"block (at most {MAX_BLOCK_ELEMS // 2} each)")
     _check_aligned(("sv", sv), ("pv", pv))
     osv, opv = torch.empty_like(sv), torch.empty_like(pv)
-    _launch("merge_level_hbm", "merge_level_hbm", (meta, sv, pv, osv, opv),
-            sv.shape[0], meta.shape[1], window)
+    _launches.launch(LAUNCHES, "merge_level_hbm", (meta, sv, pv, osv, opv),
+                     sv.shape[0], meta.shape[1], window)
     return osv, opv
 
 
@@ -577,7 +548,7 @@ def merge_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
     a power of two of at least 2 * BASE_RUN, when n > CASCADE_MAX_N on the
     card (see the constant), or when any sortval equals a masking sentinel
     (one host read; the reference: `lax.cond`). `ROUTES` counts both ways."""
-    _check_pairs(sv, pv)
+    check_pairs(sv, pv)
     n = sv.shape[0]
     if (n < 2 * BASE_RUN or not _is_pow2(n)
             or (n > CASCADE_MAX_N and sv.is_cuda) or _has_sentinel(sv)):

@@ -28,26 +28,22 @@ version `probe_aggregate_ranges_ref`. `LAUNCHES` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, _launches
+from icde2019_gpu_join_tpu_torch.ops import _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 
-# Kernel launches since the last reset; only the CUDA path adds.
-LAUNCHES: Dict[str, int] = {"probe_aggregate_ranges": 0}
+# Kernel launches since the last reset; only the CUDA path adds. With the C
+# entry point's (pointers, int64 values); a stream follows them.
+LAUNCHES = _launches.table(__name__, ("probe_aggregate_ranges",),
+                           {"probe_aggregate_ranges": (7, 3)})
 
 # The plain version walks the items in batches whose [items, TR, TS]
 # compare tensor holds at most this many elements.
 _REF_ELEMS = 1 << 26
-
-
-def reset_launches():
-    _launches.reset(LAUNCHES)
 
 
 def plan_ranges(offsets_r: np.ndarray, offsets_s: np.ndarray, n_r: int,
@@ -155,15 +151,6 @@ def probe_aggregate_ranges_ref(r_keys, r_pay, s_keys, s_pay, s_start, s_nch,
     return wrap_i32(acc)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.kernel_lib().tj_probe_aggregate_ranges
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def probe_aggregate_ranges(r_keys: torch.Tensor, r_pay: torch.Tensor,
                            s_keys: torch.Tensor, s_pay: torch.Tensor,
                            s_start, s_nch, tile_r: int = 1024,
@@ -187,13 +174,7 @@ def probe_aggregate_ranges(r_keys: torch.Tensor, r_pay: torch.Tensor,
     if tile.shape[0] >= 1 << 31:
         raise ValueError(f"too many work items: {tile.shape[0]}")
     tile_d, s0_d = (torch.from_numpy(a).to(dev) for a in (tile, s0))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(r_keys.data_ptr(), r_pay.data_ptr(), s_keys.data_ptr(),
-                        s_pay.data_ptr(), tile_d.data_ptr(), s0_d.data_ptr(),
-                        out.data_ptr(), tile.shape[0], tile_r, tile_s, stream)
-    if err != 0:
-        raise RuntimeError(f"tj_probe_aggregate_ranges launch failed: CUDA "
-                           f"error {err}")
-    _launches.count(LAUNCHES, "probe_aggregate_ranges")
+    _launches.launch(LAUNCHES, "probe_aggregate_ranges",
+                     (r_keys, r_pay, s_keys, s_pay, tile_d, s0_d, out),
+                     tile.shape[0], tile_r, tile_s)
     return out[0]

@@ -11,8 +11,8 @@ the sign bit flipped at digit extraction), with outputs, one scratch pair
 and the zeroed look-back state allocated here per call, so that callers on
 several streams never share state. The sort is stable: the payloads of
 equal keys keep their input order. On CPU tensors the plain version runs:
-`torch_sort_pairs`, `torch.sort` of the keys and a gather of the payloads
-(the span `tpujoin.sort.gather`), which is not stable. Callers may rely on
+`torch_sort_pairs`, `torch.sort` of the keys and a gather of the payloads,
+which is not stable. Callers may rely on
 neither order among equal keys: they compare results as sums or multisets.
 
 It replaces no TPU kernel: the JAX package sorts with the library's
@@ -24,38 +24,31 @@ an int64 index and a gather of the payloads through it (ROADMAP R1).
 
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from icde2019_gpu_join_tpu_torch.ops import _build, _launches
-from icde2019_gpu_join_tpu_torch.utils import profiling
 
 DIGITS = 256
 PASSES = 4
 TILE = 8192          # rows a block of a pass takes (`kTile` in the source)
 
-# Kernel launches since the last reset, by kernel; only the CUDA path adds.
-LAUNCHES: Dict[str, int] = {"radix_histogram": 0, "radix_pass": 0}
-
 # Each C entry point's pointer arguments, then its int64 arguments; a stream
 # follows.
-_SIGNATURES = {"radix_histogram": (2, 1), "radix_pass": (7, 2)}
+_ENTRIES = {"radix_histogram": (2, 1), "radix_pass": (7, 2)}
 
-
-def reset_launches():
-    _launches.reset(LAUNCHES)
+# Kernel launches since the last reset, by kernel; only the CUDA path adds.
+LAUNCHES = _launches.table(__name__, _ENTRIES, _ENTRIES)
 
 
 def torch_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The library sort, `radix_sort_pairs`' plain version: `torch.sort` of
-    the keys and a gather of the payloads, the span `tpujoin.sort.gather`."""
+    the keys and a gather of the payloads."""
     sv_s, idx = torch.sort(sv)
-    with profiling.annotate("tpujoin.sort.gather"):
-        return sv_s, pv[idx]
+    return sv_s, pv[idx]
 
 
 def check_pairs(sv: torch.Tensor, pv: torch.Tensor):
@@ -75,32 +68,13 @@ def check_pairs(sv: torch.Tensor, pv: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    """The C entry point `tj_<name>`, bound with its argument types."""
-    fn = getattr(_build.kernel_lib(), f"tj_{name}")
-    pointers, ints = _SIGNATURES[name]
-    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int64] * ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _configure(device_index: int):
     """Once a card: let the pass kernels take their shared memory there."""
-    fn = _build.kernel_lib().tj_radix_configure
-    fn.argtypes, fn.restype = [], ctypes.c_int
+    fn = _build.entry("radix_configure", args=())
     with torch.cuda.device(device_index):
         err = fn()
     if err != 0:
         raise RuntimeError(f"tj_radix_configure failed: CUDA error {err}")
-
-
-def _launch(name: str, stream: int, *args):
-    err = _kernel(name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"tj_{name} launch failed: CUDA error {err}")
-    _launches.count(LAUNCHES, name)
 
 
 def radix_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
@@ -120,18 +94,19 @@ def radix_sort_pairs(sv: torch.Tensor, pv: torch.Tensor
     # the passes' tile counters [4] as uint32
     state = torch.zeros(tiles * DIGITS + (PASSES * DIGITS + PASSES) // 2,
                         dtype=torch.int64, device=sv.device)
-    status = state.data_ptr()
-    hist = status + 8 * tiles * DIGITS
+    hist = state.data_ptr() + 8 * tiles * DIGITS
     counters = hist + 4 * PASSES * DIGITS
+    at = _launches.Address
     _configure(sv.device.index)
     with torch.cuda.device(sv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("radix_histogram", stream, sv.data_ptr(), hist, n)
+        _launches.launch(LAUNCHES, "radix_histogram", (sv, at(hist)), n,
+                         stream=stream)
         src = (sv, pv)
         for p in range(PASSES):
             dst = (keys_tmp, vals_tmp) if p % 2 == 0 else (keys_out, vals_out)
-            _launch("radix_pass", stream,
-                    *(x.data_ptr() for x in (*src, *dst)),
-                    hist + 4 * DIGITS * p, status, counters + 4 * p, n, p)
+            _launches.launch(LAUNCHES, "radix_pass",
+                             (*src, *dst, at(hist + 4 * DIGITS * p), state,
+                              at(counters + 4 * p)), n, p, stream=stream)
             src = dst
     return keys_out, vals_out

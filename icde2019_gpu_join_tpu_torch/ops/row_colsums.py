@@ -25,21 +25,14 @@ column, none otherwise.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict
-
 import torch
 
-from icde2019_gpu_join_tpu_torch.ops import _build, _launches
+from icde2019_gpu_join_tpu_torch.ops import _launches
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 
-# Kernel launches since the last reset; only the CUDA path adds.
-LAUNCHES: Dict[str, int] = {"row_colsums": 0}
-
-
-def reset_launches():
-    _launches.reset(LAUNCHES)
+# Kernel launches since the last reset; only the CUDA path adds. With the C
+# entry point's (pointers, int64 values); a stream follows them.
+LAUNCHES = _launches.table(__name__, ("row_colsums",), {"row_colsums": (3, 6)})
 
 
 def torch_row_colsums(cols: torch.Tensor, rowid: torch.Tensor) -> torch.Tensor:
@@ -66,15 +59,6 @@ def _check(cols: torch.Tensor, rowid: torch.Tensor):
         raise ValueError(f"unsupported device {cols.device}")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry point `tj_row_colsums`, bound with its argument types."""
-    fn = _build.kernel_lib().tj_row_colsums
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def row_colsums(cols: torch.Tensor, rowid: torch.Tensor) -> torch.Tensor:
     """Each row id's row of `cols` summed mod 2^32; see the module doc."""
     _check(cols, rowid)
@@ -86,11 +70,6 @@ def row_colsums(cols: torch.Tensor, rowid: torch.Tensor) -> torch.Tensor:
     out = torch.empty(m, dtype=torch.int32, device=rowid.device)
     if m == 0:
         return out
-    with torch.cuda.device(cols.device):
-        err = _kernel()(cols.data_ptr(), rowid.data_ptr(), out.data_ptr(), n, m,
-                        c, *cols.stride(), rowid.stride(0),
-                        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tj_row_colsums launch failed: CUDA error {err}")
-    _launches.count(LAUNCHES, "row_colsums")
+    _launches.launch(LAUNCHES, "row_colsums", (cols, rowid, out), n, m, c,
+                     *cols.stride(), rowid.stride(0))
     return out

@@ -18,9 +18,6 @@ The engine's spans, one each where a query crosses a layer:
     tpujoin.join          the whole banded call (a `utils/timing.PhaseTimer`
                           phase; every phase is `tpujoin.<phase>`)
     tpujoin.sort          one side's sort (`ops/band_join.sort_by_key`)
-    tpujoin.sort.gather   its payload gather on the CPU
-                          (`ops/radix_pairs.torch_sort_pairs`; the card's
-                          radix pair sort has no gather)
     tpujoin.probe         one probe call: schedule, read-back, round loop
     tpujoin.windows       the probe's block windows, under `tpujoin.probe`
     tpujoin.reduce        the "add" probe's sum of its per-S counts and
@@ -34,8 +31,8 @@ A span's device time is that of the kernels, copies and fills launched
 inside it; in the profiler's trace they lie on one clock with the spans, so
 an idle gap of the device can be put down to the spans open on the host at
 that moment. There are no spans per chunk or per round. The counters
-beside them are `ops/_launches.EVENTS` and each kernel wrapper's
-`LAUNCHES`.
+beside them are the tables of the registry in `ops/_launches.py`: its
+`EVENTS` and each kernel wrapper's `LAUNCHES`.
 
 Streamed and co-processed overlap shows in such a trace as the copy
 stream's uploads of segment k + 1 beside the compute stream's kernels of

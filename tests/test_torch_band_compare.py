@@ -9,7 +9,7 @@ from hypothesis import given, settings, strategies as st
 
 from icde2019_gpu_join_tpu.ops import band_compare_pallas as P
 from icde2019_gpu_join_tpu.ops.band_compare_pallas import banded_compare_sum as jax_sum
-from icde2019_gpu_join_tpu_torch.ops import band_compare
+from icde2019_gpu_join_tpu_torch.ops import _launches, band_compare
 
 
 def _inputs(rng, ch, wb, key_range, pay_lo, pay_hi):
@@ -214,7 +214,7 @@ def test_reset_launches_zeroes_every_kernel():
         "banded_interval_select", "banded_window_sum", "banded_window_per_s",
         "banded_window_first"}
     band_compare.LAUNCHES["banded_compare_first"] += 3
-    band_compare.reset_launches()
+    _launches.reset()
     assert set(band_compare.LAUNCHES.values()) == {0}
 
 

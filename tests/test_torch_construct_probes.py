@@ -20,7 +20,7 @@ import torch
 
 from icde2019_gpu_join_tpu.ops import merge_pallas as mp
 from icde2019_gpu_join_tpu_torch.benchmarks import construct_probes as cp
-from icde2019_gpu_join_tpu_torch.ops import _build, merge
+from icde2019_gpu_join_tpu_torch.ops import _build, _launches, merge
 
 S = 2 * cp.WROW   # rows of a full block, as in the reference's probes
 
@@ -250,7 +250,7 @@ def test_empty_launch_is_no_probe():
     no probe kernel counted, a time by the probes' own clock; it takes the
     blocks the constructs take and nothing else."""
     (a,) = cp._blocks(cp.BLOCK_ROWS, 1, "cpu", 0)
-    cp.reset_launches()
+    _launches.reset()
     o = cp.empty_launch(a)
     assert o.shape == a.shape and o.dtype == a.dtype
     assert cp.LAUNCHES == {"construct_probes": 0}

@@ -99,8 +99,11 @@ def test_uneven_shards_and_bad_meshes_raise():
     (probe_ranges, probe_ranges.LAUNCHES, "probe_aggregate_ranges")])
 def test_launch_counts_are_exact_from_eight_threads(module, counts, name):
     """Counting is a read-modify-write: eight threads counting at once with
-    a tiny switch interval lose no count."""
-    module.reset_launches()
+    a tiny switch interval lose no count; the registry's `reset` zeroes the
+    module's table."""
+    assert any(m == module.__name__ and t is counts
+               for m, t in _launches.tables())
+    _launches.reset()
     per, threads = 20_000, 8
     count = lambda: _launches.count(counts, name)   # what each wrapper calls
     old = sys.getswitchinterval()
@@ -116,5 +119,5 @@ def test_launch_counts_are_exact_from_eight_threads(module, counts, name):
     finally:
         sys.setswitchinterval(old)
     assert counts[name] == per * threads
-    module.reset_launches()
+    _launches.reset()
     assert counts[name] == 0

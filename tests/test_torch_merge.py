@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from icde2019_gpu_join_tpu.ops import merge_pallas as mp
-from icde2019_gpu_join_tpu_torch.ops import merge
+from icde2019_gpu_join_tpu_torch.ops import _launches, merge
 from tests.test_merge_pallas import check_pairs, encode_runs, make
 
 
@@ -295,7 +295,7 @@ def _sentinel_free(n, seed, lo=-(2**31) + 1, hi=2**31 - 1):
 def test_merge_sort_pairs_takes_the_cascade():
     n = 4 * mp.BASE_RUN
     sv, pv = _sentinel_free(n, 8, lo=-40, hi=40)
-    merge.reset_launches()
+    _launches.reset()
     got = _np(merge.merge_sort_pairs(*_t(sv, pv)))
     assert merge.ROUTES == {"cascade": 1, "fallback": 0}
     want = _np(mp.merge_sort_pairs(jnp.asarray(sv), jnp.asarray(pv),
@@ -319,7 +319,7 @@ def test_merge_sort_pairs_fallbacks(case, monkeypatch):
         raise AssertionError("the cascade ran")
 
     monkeypatch.setattr(merge, "_merge_sort_cascade", no_cascade)
-    merge.reset_launches()
+    _launches.reset()
     got = _np(merge.merge_sort_pairs(*_t(sv, pv)))
     assert merge.ROUTES == {"cascade": 0, "fallback": 1}
     want = _np(mp.merge_sort_pairs(jnp.asarray(sv), jnp.asarray(pv),
@@ -346,7 +346,7 @@ def test_reset_launches_zeroes_routes_too():
     merge.ROUTES["fallback"] += 3
     merge.LAUNCHES["merge_level_hbm"] += 2
     merge.LAUNCHES["merge_level_plan"] += 2
-    merge.reset_launches()
+    _launches.reset()
     assert set(merge.ROUTES.values()) | set(merge.LAUNCHES.values()) == {0}
     assert set(merge.LAUNCHES) == {"merge_levels_vmem", "merge_level_plan",
                                    "merge_level_hbm"}
@@ -459,7 +459,7 @@ def test_merge_level_plan_on_cpu_is_merge_level_meta(monkeypatch):
     real = merge.merge_level_meta
     monkeypatch.setattr(merge, "merge_level_meta",
                         lambda *a: calls.append(a[1:]) or real(*a))
-    merge.reset_launches()
+    _launches.reset()
     meta = merge.merge_level_plan(torch.from_numpy(es), run, window)
     assert calls == [(run, window)]
     assert torch.equal(meta, real(torch.from_numpy(es), run, window))

@@ -9,6 +9,7 @@ import torch
 
 from icde2019_gpu_join_tpu.ops import probe_pallas as jpp
 from icde2019_gpu_join_tpu.ops.partition import radix_partition as jax_partition
+from icde2019_gpu_join_tpu_torch.ops import _launches
 from icde2019_gpu_join_tpu_torch.ops import probe_ranges as pr_
 from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
 from tests.conftest import make_tables
@@ -183,7 +184,7 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 def test_reset_launches_zeroes_the_count():
     pr_.LAUNCHES["probe_aggregate_ranges"] += 2
-    pr_.reset_launches()
+    _launches.reset()
     assert pr_.LAUNCHES == {"probe_aggregate_ranges": 0}
 
 

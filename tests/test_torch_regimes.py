@@ -26,7 +26,7 @@ from icde2019_gpu_join_tpu_torch.models import (clustered_probe_join,
 from icde2019_gpu_join_tpu_torch.models import streaming as st
 from icde2019_gpu_join_tpu_torch.models.streaming import (
     streaming_join_aggregate)
-from icde2019_gpu_join_tpu_torch.ops import merge
+from icde2019_gpu_join_tpu_torch.ops import _launches, merge
 from icde2019_gpu_join_tpu_torch.relation import Relation
 from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
 from icde2019_gpu_join_tpu_torch.utils import placement
@@ -323,7 +323,7 @@ def test_streaming_sort_impls_match_jax(impl):
     sk = rk[rng.randint(0, 8192, 16384)].astype(np.int32)
     rp = rng.randint(-2**31, 2**31, 8192, dtype=np.int64).astype(np.int32)
     sp = rng.randint(-2**31, 2**31, 16384, dtype=np.int64).astype(np.int32)
-    merge.reset_launches()
+    _launches.reset()
     _stream(rk, rp, sk, sp, segment_rows=8192, sort_impl=impl)
     want = {"cascade": 3 if impl == "merge" else 0, "fallback": 0}
     assert merge.ROUTES == want

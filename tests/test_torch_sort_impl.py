@@ -20,7 +20,7 @@ from icde2019_gpu_join_tpu.ops import perfect_hash as jph
 from icde2019_gpu_join_tpu.relation import Relation as JaxRelation
 from icde2019_gpu_join_tpu_torch.config import EngineConfig
 from icde2019_gpu_join_tpu_torch.models import ClusteredJoin, pipelines
-from icde2019_gpu_join_tpu_torch.ops import band_join, merge, partition
+from icde2019_gpu_join_tpu_torch.ops import _launches, band_join, merge, partition
 from icde2019_gpu_join_tpu_torch.ops import perfect_hash as ph
 from icde2019_gpu_join_tpu_torch.relation import Relation
 from icde2019_gpu_join_tpu_torch.utils import oracle as toracle
@@ -65,7 +65,7 @@ def _engines(impl, mode="banded", **kw):
 def _routed(fn, impl, kind, sorts):
     """Run fn with the route counts zeroed; under "merge" every one of its
     `sorts` sorts went the way the tables dictate, otherwise none did."""
-    merge.reset_launches()
+    _launches.reset()
     out = fn()
     want = {"cascade": 0, "fallback": 0}
     if impl == "merge":
@@ -400,7 +400,7 @@ def test_sort_impl_none_is_lax_as_in_jax(entry):
     """`sort_impl=None`, the default of every function that sorts in both
     packages, runs the library sort: no cascade, no fallback, and the JAX
     function's result on the same inputs."""
-    merge.reset_launches()
+    _launches.reset()
     entry()
     assert merge.ROUTES == {"cascade": 0, "fallback": 0}
 

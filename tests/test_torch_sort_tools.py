@@ -17,7 +17,7 @@ import torch
 from icde2019_gpu_join_tpu.ops import merge_pallas as mp
 from icde2019_gpu_join_tpu_torch.benchmarks import (merge_fix_validate,
                                                      merge_sort_bench)
-from icde2019_gpu_join_tpu_torch.ops import merge
+from icde2019_gpu_join_tpu_torch.ops import merge, radix_pairs
 
 
 def _pairs(n, seed, distinct=True):
@@ -220,7 +220,7 @@ def test_merge_fix_validate_default_is_2_to_the_18_on_the_card(monkeypatch):
 
 def test_merge_fix_validate_exits_1_when_the_sort_is_wrong(capsys, monkeypatch):
     def lossy(sv, pv):
-        sv, pv = merge.torch_sort_pairs(sv, pv)
+        sv, pv = radix_pairs.torch_sort_pairs(sv, pv)
         pv = pv.clone()
         pv[0] = pv[1]
         return sv, pv

@@ -99,9 +99,8 @@ def test_spans_nest_at_the_layer_boundaries(query, kind, debug_force,
     join = ("tpujoin.join",)
     sorts = [c for n, c in spans if n == "tpujoin.sort"]
     assert sorts == [join, join]
-    # each sort holds one gather
-    assert [c for n, c in spans if n == "tpujoin.sort.gather"] == [
-        ("tpujoin.sort",) + join] * 2
+    # the CPU's sort (`torch_sort_pairs`) opens no span inside its own
+    assert [n for n, c in spans if "tpujoin.sort" in c] == []
     assert [c for n, c in spans if n == "tpujoin.probe"] == [join]
     assert [c for n, c in spans if n == "tpujoin.windows"] == [
         ("tpujoin.probe",) + join]
