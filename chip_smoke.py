@@ -114,10 +114,19 @@ run of all phases can pass. The phases:
              "pallas"` (the cascade feeding the partitions and kernel 5),
              banded materialize into 2^24 and late aggregate; and config 3 at
              2^24 x 2^26 under "packed";
-  materialize  `ClusteredJoin.materialize` (a) at 2^24 x 2^24 PK-FK into a
-             2^24 buffer, which must take the block-windowed fast path and
-             equal the numpy oracle as a multiset, and (b) the config-2 leg,
-             2^27 x 2^27 into a 2^24 ring: the total must equal the
+  materialize  the extraction kernel (`ops/extract_pairs.py`) against its
+             plain version at 2^27 S rows (one match a row in order into
+             2^27 slots, the mat cell's shape; 0-2 matches a row with every
+             4096th row matching 4096 times, about 2^28 slots; a 2^24 ring
+             under 2^27 matches), one launch each,
+             timed alone beside its bytes' bound and the plain version; then
+             `ClusteredJoin.materialize` (a) at 2^24 x 2^24 PK-FK into a
+             2^24 buffer, which must take the extraction kernel and neither
+             kernel 4 nor kernel 2 and equal the numpy oracle as a multiset,
+             and again with debug_force="fast", which must take the
+             block-windowed fast path (kernels 4 and 2) to the same slots,
+             and (b) the config-2 leg, 2^27 x 2^27 into a 2^24 ring through
+             the kernel: the total must equal the
              checked-in oracle value and the ring the one built in numpy from
              the sorted S keys (payloads are functions of the key, so the
              ring does not depend on tie order); best of 3;
@@ -164,11 +173,13 @@ run of all phases can pass. The phases:
              with 30% of S on one key, where the heavy split must run (its
              executed per-rank loads and their spread printed, within 2x of
              the uniform share); the 2-level exchange on a 2 x 4 mesh; the
-             materializing join as a multiset against the numpy oracle; and
+             materializing join as a multiset against the numpy oracle,
+             routed and with debug_force="fast"; and
              the port's `dryrun_multichip(8)` (config 5's second leg). Every
              leg overflow 0 and equal to its oracle, best of 3 after a
-             warm-up, kernel 1 (windowed) launched on every aggregate leg
-             and kernels 3 (windowed), 4 and 2 on the materialize leg. The
+             warm-up, kernel 1 (windowed) launched on every aggregate leg,
+             kernel 3 (windowed) and the extraction kernel on the routed
+             materialize leg and kernels 4 and 2 on the forced one. The
              warm-up calls record the (CH, W) each banded kernel gets; each
              is then held against its plain version at every one of them
              (the chunk entry points of kernels 1 and 3 at their windowed
@@ -224,7 +235,12 @@ merge phase. The windowed kernel 1's entry also carries its launches in the
 streamed and the co-processed call (`launches_streaming`,
 `launches_coprocess`) and on each call of the surface phase
 (`launches_surface`); the chunk entry points of kernels 1 and 3 lie on no
-path (their launches are the aggregate's and the ring's: 0). The banded
+path (their launches are the aggregate's and the ring's: 0), nor do kernel
+4 and kernel 2's chunk entry (their launches are the routed 2^24
+materialize's: 0; on it with the fast path forced, `launches_fast_forced`).
+The extraction kernel's entry carries its launches on the routed 2^24
+materialize and its time alone at 2^27 slots, one match a row, beside its
+bound and its plain version's (`cases`: each shape it was timed at). The banded
 kernels carry their launches on each leg of the distributed phase
 (`launches_distributed`), and each its holds at the shapes
 the distributed legs and the surface calls gave it (`at_distributed`,
@@ -245,7 +261,8 @@ entry carries both and its bound at config 2's plan too (`config2_*`), and
 the bound the TPU design's TR x TS compares an item would have
 (`compare_bound_ms`). Kernel 2 has two entries, as kernel 1: the windowed
 one with its launches on the config-3 pipeline (and `launches_late`), the
-chunk entry with its launches on the fast path's extraction; both carry
+chunk entry with its launches on the routed materialize (0) and on the
+forced fast path's extraction; both carry
 `timed`, their times at each of `KERNEL2_SHAPES` (the chunk entry also at
 the 2^24 fast path's extraction, (RING / 128, 6)). The probe ladder is
 one entry: its launches are the probe kernels run, its times their sums,
@@ -287,8 +304,9 @@ from icde2019_gpu_join_tpu_torch.models import (ClusteredJoin,
                                                 dispatch_regime, pipelines)
 from icde2019_gpu_join_tpu_torch.ops import (_build, _launches, band_compare,
                                              band_join, groupby, merge,
-                                             perfect_hash, probe_ranges,
-                                             radix_pairs, row_colsums)
+                                             extract_pairs, perfect_hash,
+                                             probe_ranges, radix_pairs,
+                                             row_colsums)
 from icde2019_gpu_join_tpu_torch.ops.bits import wrap_i32
 from icde2019_gpu_join_tpu_torch.ops.partition import radix_partition
 from icde2019_gpu_join_tpu_torch.parallel import dist_join, dryrun
@@ -344,6 +362,9 @@ ROUTES = {
     "stage_reps": (f"{CSRC}/stage_reps.cu", "benchmarks/merge_sort_bench.py:77"),
     "construct_probes": (f"{CSRC}/construct_probes.cu",
                          "benchmarks/mosaic_bisect.py:89"),
+    # the block-windowed extraction: its gathers, kernel 4 and kernel 2
+    "extract_pairs": (f"{CSRC}/extract_pairs.cu",
+                      "icde2019_gpu_join_tpu/ops/band_join.py:514"),
     # no TPU kernel: the JAX package's lax.sort is a library sort
     "radix_sort_pairs": (f"{CSRC}/radix_pairs.cu", "none (lax.sort; ROADMAP R1)"),
 }
@@ -1828,17 +1849,88 @@ def _pair_multiset(out_r: np.ndarray, out_s: np.ndarray) -> np.ndarray:
                    | (out_s.astype(np.int64) & 0xFFFFFFFF))
 
 
+def _extract_cases(n: int):
+    """The extraction kernel's inputs at n S rows, by name: ((off, fm, s_p,
+    r_p, capacity, total, wrap), the rows whose matches are kept). fm = off:
+    each row's matches in order."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 23)
+    ones = torch.ones(n, dtype=torch.int32, device=DEVICE)
+    skewed = _ints(gen, 0, 3, (n,))
+    skewed[::4096] = 4096
+    for name, h in (("one a row", ones), ("skewed", skewed), ("ring", ones)):
+        hsum = torch.cumsum(h, 0)
+        total = int(hsum[-1])
+        cap = RING if name == "ring" else total
+        off = (hsum - h).to(torch.int32)
+        rows = int(((h > 0) & (hsum > total - cap)).sum())
+        del hsum
+        yield name, (off, off.clone(), _full(gen, (n,)), _full(gen, (total,)),
+                     cap, total, True), rows
+
+
+def _extract_kernel() -> dict:
+    """The extraction kernel against its plain version at 2^27 S rows (one
+    launch each), and its time alone beside its bound (the off, fm and s_p
+    of each row with a kept match read once, each kept match's R payload
+    read once, each slot's pair written) and the plain version's. Returns
+    the first case's figures (one match a row, the mat cell's shape), with
+    every case's under "cases"."""
+    n = 1 << HEADLINE_SCALE
+    cases = {}
+    for name, args, rows in _extract_cases(n):
+        what = f"extract_pairs at 2^{HEADLINE_SCALE} rows, {name}"
+        got, launches = _launched(lambda: extract_pairs.extract_pairs(*args))
+        if launches["extract_pairs"] != 1:
+            raise AssertionError(f"{what}: launches {launches}")
+        want = extract_pairs.torch_extract_pairs(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{what}: != the plain version")
+        del got, want
+        cap, total = args[4], args[5]
+        nbytes = 12 * rows + 4 * min(cap, total) + 8 * cap
+        ms = _time_ms(lambda: extract_pairs.extract_pairs(*args), 20)
+        plain_ms = _time_ms(lambda: extract_pairs.torch_extract_pairs(*args), 3)
+        bound_ms = nbytes / CARD["hbm_bytes_per_s"] * 1e3
+        print(f"[materialize] {what}: {total} matches into {cap} slots, "
+              f"{rows} rows' matches kept, equal "
+              f"to plain; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes} B, {100 * bound_ms / ms:.2f}%), plain "
+              f"{plain_ms:.4f} ms", flush=True)
+        cases[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bytes": nbytes, "matches": total, "slots": cap}
+        del args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0, **next(iter(cases.values())), "cases": cases}
+
+
 def phase_materialize(big):
-    """(a) the fast path at RING rows per side; (b) the config-2 ring on
-    the headline's inputs. Returns the launch counts of (a) and (b)."""
+    """The extraction kernel alone; (a) the routed path and the forced fast
+    path at RING rows per side; (b) the config-2 ring on the headline's
+    inputs. Returns the extraction kernel's figures alone and the launch
+    counts of the routed path, the forced fast path and (b)."""
+    alone = _extract_kernel()
     engine = ClusteredJoin(device=DEVICE)
     n = RING
     rk, sk = datasets.make_pk_fk(n, n, seed=SEED)
     rp, sp = _key_payloads(rk, sk)
     r, s = _relations(rk, rp, sk, sp)
-    res, fast = _launched(lambda: engine.materialize(r, s, capacity=RING))
-    _require(fast, "materialize (a), fast path", "banded_window_first",
+    res, routed = _launched(lambda: engine.materialize(r, s, capacity=RING))
+    _require(routed, "materialize (a)", "banded_window_first",
+             "extract_pairs")
+    if routed["banded_interval_select"] or routed["banded_compare_per_s"]:
+        raise AssertionError(f"materialize (a): kernels 4 or 2 ran {routed}")
+    forced, fast = _launched(lambda: band_join.banded_materialize(
+        r.keys, r.payload, s.keys, s.payload, capacity=RING,
+        window_blocks=engine.config.band_window_blocks,
+        sort_impl=engine.sort_impl, debug_force="fast"))
+    _require(fast, "materialize (a), fast path forced", "banded_window_first",
              "banded_interval_select", "banded_compare_per_s")
+    if fast["extract_pairs"] or not all(
+            torch.equal(x, y) for x, y in zip(forced[:2], res.pairs)):
+        raise AssertionError(f"materialize (a): the forced fast path's slots "
+                             f"!= the kernel's, or the kernel ran ({fast})")
+    del forced
     t_fast, res = _best_s(lambda: engine.materialize(r, s, capacity=RING))
     want = oracle.join_materialize(rk, rp, sk, sp)
     if res.count != want.shape[0] or want.shape[0] > RING:
@@ -1856,7 +1948,8 @@ def phase_materialize(big):
     r, s = (Relation(k, p) for k, p in
             zip((r_keys, s_keys), _key_payloads(r_keys, s_keys)))
     res, ring = _launched(lambda: engine.materialize(r, s, capacity=RING))
-    _require(ring, "materialize (b), slot path", "banded_window_first")
+    _require(ring, "materialize (b), ring", "banded_window_first",
+             "extract_pairs")
     if ring["banded_interval_select"]:
         raise AssertionError("ring: the fast path ran on a wrapped ring")
     t_ring, res = _best_s(lambda: engine.materialize(r, s, capacity=RING))
@@ -1880,12 +1973,13 @@ def phase_materialize(big):
             and np.array_equal(res.pairs[1].cpu().numpy(), exp_s)):
         raise AssertionError("ring != the ring of the sorted S keys")
     print(f"[materialize] (a) {RING} x {RING} into {RING}: {total_a} pairs = "
-          f"oracle multiset, fast path, best of {REPS} {t_fast * 1e3:.3f} ms, "
-          f"launches {fast}; (b) 2^{HEADLINE_SCALE} per side, ring {RING}: "
-          f"total {total} "
-          f"(oracle), ring exact, slot path, best of {REPS} "
+          f"oracle multiset, the extraction kernel, best of {REPS} "
+          f"{t_fast * 1e3:.3f} ms, launches {routed}; the fast path forced: "
+          f"the same slots, launches {fast}; (b) 2^{HEADLINE_SCALE} per side, "
+          f"ring {RING}: total {total} "
+          f"(oracle), ring exact, the extraction kernel, best of {REPS} "
           f"{t_ring * 1e3:.3f} ms, launches {ring}")
-    return fast, ring
+    return alone, routed, fast, ring
 
 
 def _overflow_rows(rel: Relation) -> int:
@@ -2470,8 +2564,20 @@ def _thread_legs(report: list, counts: dict, seen: dict, inputs, wants,
     _dist_leg(f"{tag} materialize", lambda: (
         dist_join.distributed_join_materialize(r, p_r, s, p_s, mesh,
                                                capacity_per_chip=cap)),
-        check_pairs, ("banded_window_first", "banded_interval_select",
-                      "banded_compare_per_s"), report, counts, seen)
+        check_pairs, ("banded_window_first", "extract_pairs"), report, counts,
+        seen)
+    # the block-windowed fast path, as the JAX engine routes it: kernels 4
+    # and 2 at the shapes a rank gives them
+    routed = dist_join.banded_materialize
+    dist_join.banded_materialize = functools.partial(routed, debug_force="fast")
+    try:
+        _dist_leg(f"{tag} materialize, fast path forced", lambda: (
+            dist_join.distributed_join_materialize(r, p_r, s, p_s, mesh,
+                                                   capacity_per_chip=cap)),
+            check_pairs, ("banded_window_first", "banded_interval_select",
+                          "banded_compare_per_s"), report, counts, seen)
+    finally:
+        dist_join.banded_materialize = routed
     report.append(f"2^{DIST_THREAD_SCALE} x 2^{DIST_THREAD_SCALE} global, "
                   f"full-range payloads, C++ oracles {want} and {want_hot}, "
                   f"{pairs.shape[0]} pairs into {cap} a rank")
@@ -2782,7 +2888,11 @@ def main(argv=None):
     _timed("mid", phase_mid)
     head, big = _timed("headline", phase_headline)
     sorts, kstats["radix_sort_pairs"] = _timed("sorts", phase_sorts, big)
-    fast, ring = _timed("materialize", phase_materialize, big)
+    (kstats["extract_pairs"], routed, fast,
+     ring) = _timed("materialize", phase_materialize, big)
+    # kernels 4 and 2's chunk entry on the fast path, forced
+    for name in ("banded_interval_select", "banded_compare_per_s"):
+        kstats[name]["launches_fast_forced"] = fast[name]
     part, at_config2 = _timed("partitioned", phase_partitioned, big)
     kstats["probe_aggregate_ranges"].update(at_config2)
     # kernel 1's launches in the out-of-memory regimes, beside the headline's
@@ -2809,19 +2919,22 @@ def main(argv=None):
                                           held[name]["max_abs_err"],
                                           at_surface[name]["max_abs_err"])
     # each kernel's launches on its path: the aggregate, the config-3
-    # pipeline, the config-2 ring, the 2^24 fast-path materialize, the
-    # config-2 "pallas" aggregate, the 2^27 aggregate under "merge"; the tile
-    # sort's call, `bench_stages`, the probe ladder. The chunk entry points
-    # of kernels 1 and 3 lie on no path now (0 on the aggregate and the
-    # ring, where their windowed twins run); kernel 2's runs on the fast
-    # path's extraction, its windowed twin on the config-3 pipeline
+    # pipeline, the config-2 ring, the routed 2^24 materialize, the config-2
+    # "pallas" aggregate, the 2^27 aggregate under "merge"; the tile sort's
+    # call, `bench_stages`, the probe ladder. The chunk entry points of
+    # kernels 1 and 3 lie on no path now (0 on the aggregate and the ring,
+    # where their windowed twins run); nor do kernel 4 and kernel 2's chunk
+    # entry (0 on the routed materialize, where the extraction kernel runs;
+    # their counts with the fast path forced under "launches_fast_forced");
+    # kernel 2's windowed twin on the config-3 pipeline
     launches = {"banded_compare_sum": head["banded_compare_sum"],
-                "banded_compare_per_s": fast["banded_compare_per_s"],
+                "banded_compare_per_s": routed["banded_compare_per_s"],
                 "banded_window_per_s": pipe["banded_window_per_s"],
                 "banded_compare_first": ring["banded_compare_first"],
                 "banded_window_sum": head["banded_window_sum"],
                 "banded_window_first": ring["banded_window_first"],
-                "banded_interval_select": fast["banded_interval_select"],
+                "banded_interval_select": routed["banded_interval_select"],
+                "extract_pairs": routed["extract_pairs"],
                 "probe_aggregate_ranges": part["probe_aggregate_ranges"],
                 "merge_levels_vmem": sorts["merge_levels_vmem"],
                 "merge_level_hbm": sorts["merge_level_hbm"],

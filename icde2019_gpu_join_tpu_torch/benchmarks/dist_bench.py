@@ -14,7 +14,8 @@ host clock to a synchronised end:
                `dryrun_multichip` sizes it), as `banded_materialize` routes
                it and with its slot path forced, timed in the order routed,
                slot, slot, routed; both equal to the oracle as multisets,
-               with the launches of kernel 4 (the fast path's) in each and
+               with the launches of the extraction kernel (the routed
+               path's on the card) in each and
                the device's busy time of one more call of each under
                `torch.profiler`;
   process      a 1-rank `torch.distributed` world (NCCL on the card, gloo on
@@ -52,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from icde2019_gpu_join_tpu_torch import datagen
-from icde2019_gpu_join_tpu_torch.ops import band_compare, band_join
+from icde2019_gpu_join_tpu_torch.ops import band_join, extract_pairs
 from icde2019_gpu_join_tpu_torch.parallel import dist_join
 from icde2019_gpu_join_tpu_torch.parallel.mesh import group_mesh, make_mesh
 from icde2019_gpu_join_tpu_torch.utils import datasets, oracle
@@ -174,23 +175,24 @@ def materialize_leg(rows_per_rank: int, device) -> dict:
 
     times = {"routed": [], "slot": []}
     busy = {"routed": [], "slot": []}
-    selects = {"routed": 0, "slot": 0}   # kernel 4 runs on the fast path only
+    # the extraction kernel runs on the card's routed path only
+    extracts = {"routed": 0, "slot": 0}
     correct = True
     for path in ("routed", "slot", "slot", "routed"):
         dist_join.banded_materialize = routed if path == "routed" else slot
-        before = band_compare.LAUNCHES["banded_interval_select"]
+        before = extract_pairs.LAUNCHES["extract_pairs"]
         try:
             ms, res = _best_ms(call, device)
             busy[path].append(_profiled(call, device)["busy_ms"])
         finally:
             dist_join.banded_materialize = routed
-        selects[path] += band_compare.LAUNCHES["banded_interval_select"] - before
+        extracts[path] += extract_pairs.LAUNCHES["extract_pairs"] - before
         correct &= equal(res)
         times[path].append(ms)
     return {"pairs": int(pairs.shape[0]), "capacity_per_chip": cap,
             "routed_ms": times["routed"], "slot_ms": times["slot"],
             "routed_busy_ms": busy["routed"], "slot_busy_ms": busy["slot"],
-            "interval_select_launches": selects, "correct": bool(correct)}
+            "extract_launches": extracts, "correct": bool(correct)}
 
 
 def process_leg(rows: int, device) -> dict:

@@ -49,6 +49,10 @@ from icde2019_gpu_join_tpu_torch.ops.band_compare import (
     banded_window_sum,
 )
 from icde2019_gpu_join_tpu_torch.ops.bits import rotate_keys, wrap_i32
+from icde2019_gpu_join_tpu_torch.ops.extract_pairs import (
+    extract_pairs,
+    torch_extract_pairs,
+)
 from icde2019_gpu_join_tpu_torch.ops.merge import (
     merge_sort_pairs,
     packed_sort_pairs,
@@ -344,29 +348,6 @@ def _extract_blocked(h, fm, off, s_p, r_p, capacity: int, total: int, s_blk,
                  for x in (r_sel, sp_sel))
 
 
-def _materialize_slot_path(h, fm, off, s_p, r_p, capacity: int, total: int,
-                           wrap: bool):
-    """Exact per-slot extraction. With wrap, slot pos holds the last match
-    m = pos + capacity*floor((total-1-pos)/capacity) that lands on it;
-    without, match pos (the JAX path's repeat-expansion truncated to
-    `capacity` gives the same slots). The owning S row comes from one
-    searchsorted over the match-offset table, so the cost is
-    O(capacity log n_s) whatever the total."""
-    dev = h.device
-    pos = torch.arange(capacity, dtype=torch.int64, device=dev)
-    m = pos
-    if wrap:
-        m = pos + torch.clamp(total - 1 - pos, min=0) // capacity * capacity
-    s_row = torch.clamp(
-        torch.searchsorted(off, m.to(torch.int32), right=True) - 1,
-        0, h.shape[0] - 1)
-    r_pos = torch.clamp(fm[s_row].long() + m - off[s_row], 0, r_p.shape[0] - 1)
-    valid = pos < total
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return (torch.where(valid, r_p[r_pos], zero),
-            torch.where(valid, s_p[s_row], zero))
-
-
 # Fast-path window widths in blocks: S side (owner rows), R side (matches)
 _SWB, _RWB = 4, 6
 
@@ -437,11 +418,15 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
     join_partitioned_results, src/join-primitives.cu:1371-1373). wrap=False
     truncates instead.
 
-    Extraction: when no ring lap happened and per-block owner spans fit
-    the static windows, the block-windowed fast path (_extract_blocked)
-    runs; otherwise the exact slot path does. One host read of the span
-    check decides (JAX: lax.cond). debug_force "fast" / "slow" takes that
-    path regardless (tests)."""
+    Extraction on a card: one launch of `extract_pairs`, which maps every
+    slot to its match by a load-balanced search over the match offsets.
+    On the CPU, and on either device with debug_force, the JAX engine's
+    routes: when no ring lap happened and per-block owner spans fit the
+    static windows, the block-windowed fast path (_extract_blocked) runs;
+    otherwise the exact slot path (`torch_extract_pairs`, the kernel's
+    plain version) does. One host read of the span check decides (JAX:
+    lax.cond). debug_force "fast" / "slow" takes that path regardless
+    (tests, and kernels 4 and 2 held on the card)."""
     if debug_force not in (None, "fast", "slow"):
         raise ValueError(f"unknown debug_force {debug_force!r}")
     r_sv, r_p = sort_by_key(r_keys, r_pay, sort_impl)
@@ -459,6 +444,10 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
         if total <= 0:   # every slot is masked by pos < total on both paths
             zeros = torch.zeros(capacity, dtype=torch.int32, device=h.device)
             return zeros, zeros.clone(), total_t
+        if h.is_cuda and debug_force is None:
+            out_r, out_s = extract_pairs(off, fm, s_p, r_p, capacity, total,
+                                         wrap)
+            return out_r, out_s, total_t
         force = debug_force
         if force is None and wrap and total > capacity:
             force = "slow"   # a ring lap: the span check cannot pass
@@ -470,8 +459,8 @@ def banded_materialize(r_keys: torch.Tensor, r_pay: torch.Tensor,
             if force == "fast":
                 out_r, out_s = _extract_blocked(*plan)
                 return out_r[:capacity], out_s[:capacity], total_t
-        out_r, out_s = _materialize_slot_path(h, fm, off, s_p, r_p, capacity,
-                                              total, wrap)
+        out_r, out_s = torch_extract_pairs(off, fm, s_p, r_p, capacity, total,
+                                           wrap)
         return out_r, out_s, total_t
 
 
